@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port (``src/repro_torch``) runs on one
+NVIDIA GPU, through its hand-written CUDA kernels.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printed on lines of its own and each fatal when it fails:
+
+1. env     torch and CUDA versions, the card, its name and power limit.
+2. build   every CUDA source of the port with nvcc for sm_90a; the ptxas
+           report (registers, spills) and each kernel's shared memory.
+3. kernel  each kernel against its plain PyTorch version on the card, at the
+           serve path's shapes and at the sweeps of tests/test_kernels.py,
+           then timed with CUDA events beside the plain version, one PyTorch
+           library call and the card's bound.
+4. serve   the main path: full-width qwen2-1.5b in bf16 with random weights
+           from ``--seed``; a prefill of (4, 512) prompts through the flash
+           kernel (28 launches), then ``generate`` of 32 greedy tokens.
+5. profile where the serve path's time goes: torch.profiler over one
+           prefill and over 8 decode steps of the same model, kernel time by
+           group and the device's busy share.
+6. parity  full width in f32: prefill through the kernel against prefill
+           through the plain chunked attention, on the same weights.
+7. kernels one JSON line with every kernel's launches, error and times.
+
+The last line is ``{"ok": true, "device": {...}}``, printed only when every
+phase passed. Imports nothing of JAX or of the JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# NVIDIA H100 SXM data sheet (dense, at the 700 W limit): the bound's peaks
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# tests/test_kernels.py: f32 summation order; bf16 one rounding of the output
+KERNEL_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# bf16: how far the kernel may be from the f32 plain version beyond half a
+# bf16 step of the output (its own rounding). P V in f32 precision stays near
+# 1e-6; P rounded to bf16 before P V reaches about 3e-3 at the slice's shapes.
+ROUNDING_EXCESS_TOL = 1e-4
+# tests/test_extensions.py:151, kernel route against the plain route
+PARITY_ATOL = 2e-3
+
+ARCH = "qwen2-1.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+PARITY_BATCH, PARITY_PROMPT = 2, 256
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (label, B, S, H, KV, hd, causal, window, dtype)
+FLASH_CASES = [
+    ("slice", 4, 512, 12, 2, 128, True, 0, BF16),
+    ("slice", 4, 512, 12, 2, 128, True, 0, F32),
+    ("slice_window128", 4, 512, 12, 2, 128, True, 128, BF16),
+    ("slice_noncausal", 4, 512, 12, 2, 128, False, 0, BF16),
+    *[(f"sweep_S{S}_hd{hd}", 2, S, 2, 2, hd, True, 0, dt)
+      for S, hd in ((128, 64), (256, 64), (256, 32), (128, 128)) for dt in (F32, BF16)],
+    *[(f"sweep_window{w}", 1, 256, 2, 2, 32, True, w, F32) for w in (32, 64, 100)],
+    ("sweep_noncausal", 1, 128, 1, 1, 64, False, 0, F32),
+    ("sweep_gqa", 2, 128, 4, 2, 32, True, 0, F32),
+    ("ragged", 2, 100, 4, 2, 80, True, 0, BF16),
+]
+
+
+def log(phase: str, msg: str):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rounding_excess(o, ref) -> float:
+    """Largest |o - ref| beyond half a bf16 step of ref: what a bf16 output
+    carries besides its one rounding."""
+    ref = ref.float()
+    _, e = torch.frexp(ref)
+    half_ulp = torch.where(ref == 0, 0.0, torch.exp2((e - 9).float()))  # step 2^(e-8)
+    return ((o.float() - ref).abs() - half_ulp).max().item()
+
+
+def plain_bf16_p(q, k, v, *, causal: bool, window: int):
+    """The plain version with the softmax weights rounded to bf16 before P V:
+    what the kernel would give if it rounded P. Only to size the check above."""
+    from repro_torch.kernels.ref import NEG_INF
+    G = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).float()
+    kh, vh = (t.transpose(1, 2).repeat_interleave(G, dim=1).float() for t in (k, v))
+    s = qh @ kh.transpose(-1, -2) * q.shape[-1] ** -0.5
+    S = q.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] <= pos[:, None] if causal else torch.ones(S, S, dtype=torch.bool,
+                                                                   device=q.device)
+    if causal and window:
+        mask &= pos[None, :] > pos[:, None] - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = (p.to(BF16).float() @ vh) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).to(q.dtype)
+
+
+def attended_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps for one (batch, head)."""
+    if not causal:
+        return S * S
+    return sum(min(q + 1, window) if window else q + 1 for q in range(S))
+
+
+# ------------------------------------------------------------------- phases
+
+def phase_env() -> str:
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log("env", f"python {sys.version.split()[0]} torch {torch.__version__} "
+               f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+               f"count {torch.cuda.device_count()}")
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 references in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    return smi
+
+
+def _ptxas_lines(report: str):
+    """One line per compiled kernel: registers and spills from -Xptxas -v."""
+    name, spills, out = None, "", []
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            # <mangled prefix><len><kernel>ILi<hd>E...: keep the kernel's name and hd
+            t = re.search(r"(\w+?)ILi(\d+)E", name)
+            if t:
+                kernel = re.sub(r"^.*\d", "", t.group(1))
+                name = f"{kernel}<hd={t.group(2)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spills}")
+    return out
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    b = build.build("flash_attention")
+    log("build", f"{b.name}.cu " + (f"compiled in {b.seconds:.1f} s" if b.seconds
+                                    else f"reused {b.path.name}"))
+    for line in _ptxas_lines(b.report):
+        log("build", line)
+    log("build", "flash_attention dynamic shared memory per block: " + ", ".join(
+        f"{str(dt)[6:]} hd={hd} {fa.smem_bytes(hd, dt)} B" for dt in (BF16, F32) for hd in (64, 128)))
+
+
+def _rand(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
+
+
+def phase_kernel(seed: int) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import ref_gqa_attention
+    rng = np.random.default_rng(seed)
+    failures, slice_err = [], None
+    for label, B, S, H, KV, hd, causal, window, dt in FLASH_CASES:
+        q, k, v = _rand(rng, (B, S, H, hd), dt), _rand(rng, (B, S, KV, hd), dt), \
+            _rand(rng, (B, S, KV, hd), dt)
+        o = fa.flash_attention(q, k, v, causal=causal, window=window)
+        ref = ref_gqa_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = (o.float() - ref.float()).abs().max().item()
+        ok = o.dtype == dt and o.shape == q.shape and err <= KERNEL_ATOL[dt]
+        excess = ""
+        if dt == BF16:                        # against the plain version's f32 output
+            ref32 = ref_gqa_attention(q.float(), k.float(), v.float(), causal=causal,
+                                      window=window)
+            x = rounding_excess(o, ref32)
+            ok = ok and x <= ROUNDING_EXCESS_TOL
+            excess = f", beyond half a bf16 step {x:.3g} (tol {ROUNDING_EXCESS_TOL:g})"
+        log("kernel", f"flash_attention {label} B={B} S={S} H={H} KV={KV} hd={hd} "
+                      f"causal={causal} window={window} {str(dt)[6:]}: max_abs_err {err:.3g} "
+                      f"(tol {KERNEL_ATOL[dt]:g}){excess} {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            failures.append(label)
+        if label == "slice" and dt == BF16:
+            slice_err = err
+            x_bf16_p = rounding_excess(plain_bf16_p(q, k, v, causal=causal, window=window),
+                                       ref32)
+            log("kernel", f"flash_attention slice bf16: with P rounded to bf16 before P V "
+                          f"(plain emulation) the excess beyond half a bf16 step would be "
+                          f"{x_bf16_p:.3g}")
+    if failures:
+        raise RuntimeError(f"flash_attention disagrees with its plain version: {failures}")
+
+    # timing at the serve path's shapes and type
+    _, B, S, H, KV, hd, causal, window, dt = FLASH_CASES[0]
+    q, k, v = _rand(rng, (B, S, H, hd), dt), _rand(rng, (B, S, KV, hd), dt), \
+        _rand(rng, (B, S, KV, hd), dt)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = (lib_out.transpose(1, 2).float() -
+               ref_gqa_attention(q, k, v).float()).abs().max().item()
+    lib_excess = rounding_excess(lib_out.transpose(1, 2),
+                                 ref_gqa_attention(q.float(), k.float(), v.float()))
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 100)
+    plain_ms = cuda_ms(lambda: ref_gqa_attention(q, k, v, causal=True), 20)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 100)
+    ms2 = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 100)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * H * hd * attended_pairs(S, causal, window)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log("kernel", f"flash_attention timing B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal: "
+                  f"kernel {ms:.4f} ms and {ms2:.4f} ms (two runs), plain {plain_ms:.4f} ms, "
+                  f"scaled_dot_product_attention {library_ms:.4f} ms (max_abs_err {lib_err:.3g}, "
+                  f"beyond half a bf16 step {lib_excess:.3g}); "
+                  f"bound {bound_ms * 1e3:.2f} us = max({nbytes / 1e6:.2f} MB at 3.35 TB/s, "
+                  f"{flops / 1e9:.3f} GFLOP at 989 TFLOP/s); "
+                  f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s, {bound_ms / ms:.2%} of the bound")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:24",
+            "launches": None, "max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
+def reset_counts():
+    from repro_torch.kernels import flash_attention as fa
+    fa.flash_attention.launches = 0
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention.launches}
+
+
+def phase_serve(seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.model import init_params
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"))
+    log("serve", f"{ARCH} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}, "
+                 f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}; prompts {tuple(prompts.shape)}")
+
+    times = []
+    for _ in range(6):                       # the first call loads the library and warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(times[1:])
+
+    # the main path, with every kernel count at 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    after_prefill = read_counts()["flash_attention"]
+    stats: dict = {}
+    out = serve.generate(cfg, params, prompts, SERVE_GEN, stats=stats)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    if after_prefill != cfg.num_layers:
+        raise RuntimeError(f"prefill launched flash_attention {after_prefill} times, "
+                           f"not once per layer ({cfg.num_layers})")
+    if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.vocab_size) or \
+            not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"prefill logits are malformed: {tuple(logits.shape)}")
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
+            not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise RuntimeError(f"generate gave {tuple(out.shape)} or tokens out of range")
+    agree = int((logits[:, -1].argmax(-1) == out[:, 0]).sum())
+    decode_ms = stats["decode_s"] / stats["decode_steps"] * 1e3
+    log("serve", f"prefill_ms {prefill_ms:.3f} (median of {len(times) - 1}: "
+                 f"{', '.join(f'{t:.3f}' for t in times[1:])}); flash_attention launches "
+                 f"in one prefill {after_prefill}")
+    log("serve", f"generate: prompt stepped through decode in {stats['prefill_s']:.3f} s "
+                 f"({SERVE_BATCH * SERVE_PROMPT / stats['prefill_s']:.1f} tok/s), "
+                 f"decode_ms_per_step {decode_ms:.3f}, "
+                 f"{SERVE_BATCH * SERVE_GEN / stats['decode_s']:.1f} generated tok/s, "
+                 f"max_memory_allocated {peak / 2**30:.3f} GiB; "
+                 f"output {tuple(out.shape)}; sample {out[0, :8].tolist()}")
+    log("serve", f"prefill argmax equals the first generated token in {agree} of "
+                 f"{SERVE_BATCH} rows (reported, not gated: bf16 prefill and stepped decode "
+                 f"round at different places)")
+    log("serve", f"kernel launches on the main path: {counts}")
+    return counts, (cfg, params, batch["tokens"])
+
+
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "cublas", "addmm", "aten::mm", "aten::bmm")
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd" in low:
+        return "attention kernel"
+    if any(m in low for m in GEMM_MARKS):
+        return "gemm"
+    return "other"
+
+
+def profile_window(fn, top: int = 8) -> dict:
+    """Host wall time of ``fn`` (ms) without the profiler, then its profile:
+    time in device kernels by group, and the kernels that took the most."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernel_names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.key in kernel_names]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    busy_ms = sum(r[2] for r in rows)
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    groups: dict = {}
+    for name, _, ms in rows:
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name), 0.0) + ms
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": sum(r[1] for r in rows),
+            "groups_ms": groups, "top": rows[:top]}
+
+
+def phase_profile(cfg, params, tokens, decode_steps: int = 8):
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_cache
+    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"))
+    serve_step = steps.make_serve_step(cfg)
+    B, S = tokens.shape
+    cache = init_cache(cfg, B, S + decode_steps, tokens.device)
+
+    def decode_window():                          # the steps after a prompt of S tokens
+        cur = tokens[:, :1]
+        for i in range(decode_steps):
+            cur, _ = serve_step(params, cache, cur, S + i)
+
+    for label, fn in ((f"prefill ({B}, {S})", lambda: prefill(params, {"tokens": tokens})),
+                      (f"decode x{decode_steps}", decode_window)):
+        res = profile_window(fn)
+        log("profile", f"{label}: wall {res['wall_ms']:.3f} ms without the profiler; kernel "
+                       f"time {res['busy_ms']:.3f} ms in {res['launches']} launches, busy "
+                       f"{res['busy_ms'] / res['wall_ms']:.1%} of the wall time; " + ", ".join(
+                           f"{g} {ms:.3f} ms ({ms / res['busy_ms']:.1%})"
+                           for g, ms in sorted(res["groups_ms"].items(), key=lambda kv: -kv[1])))
+        for name, count, ms in res["top"]:
+            log("profile", f"{label}:   {ms:9.3f} ms  x{count:<5d} {name[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_parity(seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill_step
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    tokens = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    before = read_counts()["flash_attention"]
+    kern = prefill_step(cfg.replace(attn_impl="pallas"), params, batch).float()
+    launched = read_counts()["flash_attention"] - before
+    plain = prefill_step(cfg.replace(attn_impl="jnp"), params, batch).float()
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs().max().item()
+    ok = launched == cfg.num_layers and bool(torch.isfinite(kern).all()) and diff <= PARITY_ATOL
+    log("parity", f"{ARCH} full width f32, TF32 off, prompts {tokens.shape}: last-position "
+                  f"logits through the kernel ({launched} launches) vs the plain chunked "
+                  f"path: max_abs_diff {diff:.3g} (tol {PARITY_ATOL:g}; logits max "
+                  f"{plain.abs().max().item():.3g}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("kernel-route prefill disagrees with the plain route")
+    del params
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    phase = "env"
+    try:
+        smi = phase_env()
+        phase = "build"
+        phase_build()
+        phase = "kernel"
+        kernels = [phase_kernel(args.seed)]
+        phase = "serve"
+        counts, model = phase_serve(args.seed)
+        for k in kernels:
+            k["launches"] = counts[k["name"]]
+        missing = [k["name"] for k in kernels if not k["launches"]]
+        if missing:
+            raise RuntimeError(f"kernels of the path never launched on the main path: {missing}")
+        phase = "profile"
+        phase_profile(*model)
+        del model
+        torch.cuda.empty_cache()
+        phase = "parity"
+        phase_parity(args.seed)
+        phase = "kernels"
+        for k in kernels:
+            log("kernels", f"{k['name']} ({k['route']}, {k['source']}): check ok, "
+                           f"launches {k['launches']}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+                           f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
+                           f"({k['bound_by']})")
+    except Exception:
+        traceback.print_exc()
+        print(f"[{phase}] FAILED", flush=True)
+        return 1
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

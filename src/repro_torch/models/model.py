@@ -1,0 +1,86 @@
+"""Top-level LM: embeddings, decoder stack, tied or untied head, prefill and
+decode steps, for the serving path.
+
+Audio and vision frontends are not ported yet (ROADMAP: frontend stubs).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.device import resolve_device
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import ParamDef, init_tree, rms_norm
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(ROADMAP: frontend stubs)")
+    D, V = cfg.d_model, cfg.vocab_size
+    defs = {
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.02),
+        "blocks": tf_mod.stacked_defs(cfg),
+        "final_norm": ParamDef((D,), ("embed",), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((D, V), ("embed", "vocab"), scale=0.02)
+    return defs
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    """Random parameters drawn from ``generator``, which must live on
+    ``device`` (cuda unless asked otherwise)."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
+    return init_tree(model_defs(cfg), generator, torch_dtype(cfg))
+
+
+def _head(cfg, params, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return h @ w
+
+
+def forward(cfg: ModelConfig, params, batch):
+    """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns the final
+    hidden states (B, S, D). The JAX version also returns the MoE aux loss
+    and the frontend prefix length; this dense, text-only slice has neither."""
+    tokens = batch["tokens"]
+    x = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = tf_mod.stack_fwd(cfg, params["blocks"], x, pos)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+# ------------------------------------------------------------- decoding
+
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
+    return tf_mod.init_stacked_cache(cfg, batch, cache_len_for(cfg, seq_len),
+                                     torch_dtype(cfg), resolve_device(device))
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
+    """One decode step. tokens: (B, 1) int64; pos: absolute position.
+    Returns (logits (B, 1, V), cache), the cache updated in place."""
+    x = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    x, cache = tf_mod.stack_decode(cfg, params["blocks"], cache, x, pos)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(cfg, params, x), cache
+
+
+def prefill_step(cfg: ModelConfig, params, batch):
+    """Inference prefill: full forward, returns last-position logits (B, 1, V)."""
+    h = forward(cfg, params, batch)
+    return _head(cfg, params, h[:, -1:])

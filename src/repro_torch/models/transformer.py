@@ -1,0 +1,92 @@
+"""Decoder stack: repeating layer periods (cfg.pattern), one Python loop
+iteration per period. Parameters and caches keep ``repro``'s layout, with a
+leading ``num_periods`` dim on every leaf.
+
+This slice ports the dense attention layer ('A' mixer + SwiGLU FFN). Mamba
+('M') and MoE layers raise NotImplementedError until their slices land
+(ROADMAP, queue 1: MoE slice, SSM slice).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    ParamDef, index_tree, mlp_defs, mlp_fwd, rms_norm, stack_defs)
+
+
+def _check_layer(cfg, j: int, ch: str):
+    if ch != "A":
+        raise NotImplementedError(
+            f"{cfg.name}: '{ch}' mixer layers are not ported yet (ROADMAP: SSM slice)")
+    if cfg.num_experts > 0 and cfg.d_ff > 0 and j % cfg.moe_every == cfg.moe_every - 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP: MoE slice)")
+
+
+def layer_defs(cfg, j: int, ch: str) -> dict:
+    _check_layer(cfg, j, ch)
+    D = cfg.d_model
+    defs = {"norm1": ParamDef((D,), ("embed",), init="ones"),
+            "mixer": attn.attn_defs(cfg)}
+    if cfg.d_ff > 0:
+        defs["norm2"] = ParamDef((D,), ("embed",), init="ones")
+        defs["ffn"] = mlp_defs(D, cfg.d_ff)
+    return defs
+
+
+def period_defs(cfg) -> dict:
+    return {f"layer{j}": layer_defs(cfg, j, ch) for j, ch in enumerate(cfg.pattern)}
+
+
+def stacked_defs(cfg) -> dict:
+    return stack_defs(period_defs(cfg), cfg.num_periods)
+
+
+def _ffn(cfg, lp, x):
+    if cfg.d_ff > 0:
+        x = x + mlp_fwd(lp["ffn"], rms_norm(x, lp["norm2"], cfg.norm_eps))
+    return x
+
+
+# --------------------------------------------------------------- forward
+
+def stack_fwd(cfg, stacked, x, pos):
+    """x: (B, S, D) -> (B, S, D). No activation checkpointing: prefill
+    keeps no activations for a backward pass."""
+    for i in range(cfg.num_periods):
+        pparams = index_tree(stacked, i)
+        for j, ch in enumerate(cfg.pattern):
+            _check_layer(cfg, j, ch)
+            lp = pparams[f"layer{j}"]
+            mix, _ = attn.attention(cfg, lp["mixer"], rms_norm(x, lp["norm1"], cfg.norm_eps), pos)
+            x = _ffn(cfg, lp, x + mix)
+    return x
+
+
+# --------------------------------------------------------------- decode
+
+def init_stacked_cache(cfg, batch: int, cache_len: int, dtype, device):
+    cache = {}
+    for j, ch in enumerate(cfg.pattern):
+        _check_layer(cfg, j, ch)
+        per = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+        cache[f"layer{j}"] = {
+            k: t.unsqueeze(0).repeat(cfg.num_periods, *([1] * t.dim()))
+            for k, t in per.items()}
+    return cache
+
+
+def stack_decode(cfg, stacked, cache, x, pos: int):
+    """One token through every layer; ``cache`` is updated in place.
+    Returns (x, cache)."""
+    for i in range(cfg.num_periods):
+        pparams, pcache = index_tree(stacked, i), index_tree(cache, i)
+        for j, ch in enumerate(cfg.pattern):
+            _check_layer(cfg, j, ch)
+            lp = pparams[f"layer{j}"]
+            mix, _ = attn.decode_attention(
+                cfg, lp["mixer"], rms_norm(x, lp["norm1"], cfg.norm_eps),
+                pcache[f"layer{j}"], pos)
+            x = _ffn(cfg, lp, x + mix)
+    return x, cache
