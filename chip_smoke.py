@@ -7,20 +7,26 @@ NVIDIA GPU, through its hand-written CUDA kernels.
 Phases, each printed on lines of its own and each fatal when it fails:
 
 1. env     torch and CUDA versions, the card, its name and power limit.
-2. build   every CUDA source of the port with nvcc for sm_90a; the ptxas
-           report (registers, spills) and each kernel's shared memory.
+2. build   every CUDA source of the port with nvcc for sm_90a, one nvcc per
+           source, all started together; the ptxas report (registers,
+           spills) and each kernel's shared memory.
 3. kernel  each kernel against its plain PyTorch version on the card, at the
-           serve path's shapes and at the sweeps of tests/test_kernels.py,
+           serve paths' shapes and at the sweeps of tests/test_kernels.py,
            then timed with CUDA events beside the plain version, one PyTorch
-           library call and the card's bound.
-4. serve   the main path: full-width qwen2-1.5b in bf16 with random weights
-           from ``--seed``; a prefill of (4, 512) prompts through the flash
-           kernel (28 launches), then ``generate`` of 32 greedy tokens.
-5. profile where the serve path's time goes: torch.profiler over one
+           library call where there is one, and the card's bound.
+4. serve   the main paths, each with every kernel count at 0 just before it:
+           full-width qwen2-1.5b in bf16, a prefill of (4, 512) prompts
+           through the flash kernel (28 launches), then ``generate`` of 32
+           greedy tokens; full-width mamba2-130m in bf16, a prefill of
+           (4, 1024) prompts through the SSD kernel (24 launches), then
+           ``generate`` of 32 greedy tokens. Random weights from ``--seed``.
+5. profile where each serve path's time goes: torch.profiler over one
            prefill and over 8 decode steps of the same model, kernel time by
            group and the device's busy share.
-6. parity  full width in f32: prefill through the kernel against prefill
-           through the plain chunked attention, on the same weights.
+6. parity  full width in f32: qwen2-1.5b prefill through the flash kernel
+           against the plain chunked attention on the card; mamba2-130m
+           prefill through the SSD kernel on the card against the plain
+           chunked scan on the CPU, from a copy of the same weights.
 7. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
@@ -29,6 +35,7 @@ phase passed. Imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import re
 import statistics
@@ -56,10 +63,20 @@ KERNEL_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 ROUNDING_EXCESS_TOL = 1e-4
 # tests/test_extensions.py:151, kernel route against the plain route
 PARITY_ATOL = 2e-3
+# tests/test_kernels.py:69-70 for y; the f32 state h relative to its size
+SSD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+SSD_H_RTOL = 1e-4
+# bf16: the kernel computes in f32 and rounds y once, so beyond half a bf16
+# step it may differ from the f32 plain version only as the f32 case does
+SSD_ROUNDING_EXCESS_TOL = 1e-4
 
-ARCH = "qwen2-1.5b"
-SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 512, 32
+QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
+SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
+SERVE_BATCH, SERVE_GEN = 4, 32
 PARITY_BATCH, PARITY_PROMPT = 2, 256
+# the kernel each serve path runs, and the mixer whose layers launch it
+PATH_KERNEL = {QWEN: ("flash_attention", "A"), MAMBA: ("ssd_scan", "M")}
+KERNEL_SOURCES = ("flash_attention", "ssd_scan")
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, B, S, H, KV, hd, causal, window, dtype)
@@ -74,6 +91,18 @@ FLASH_CASES = [
     ("sweep_noncausal", 1, 128, 1, 1, 64, False, 0, F32),
     ("sweep_gqa", 2, 128, 4, 2, 32, True, 0, F32),
     ("ragged", 2, 100, 4, 2, 80, True, 0, BF16),
+]
+# (label, Bb, S, nh, hd, g, ds, chunk, dtype); "slice" is mamba2-130m's
+# prefill at (4, 1024), with x, B and C strided views of one tensor as the
+# model hands them over
+SSD_CASES = [
+    ("slice", 4, 1024, 24, 64, 1, 128, 128, BF16),
+    ("slice", 4, 1024, 24, 64, 1, 128, 128, F32),
+    *[(f"sweep_S{S}_hd{hd}", 2, S, nh, hd, nh, ds, chunk, dt)
+      for S, nh, hd, ds, chunk in ((128, 2, 32, 16, 64), (256, 4, 64, 32, 128),
+                                   (192, 1, 16, 8, 64)) for dt in (F32, BF16)],
+    ("groups", 2, 256, 8, 32, 2, 64, 128, F32),
+    ("padded", 1, 150, 3, 24, 1, 20, 50, BF16),
 ]
 
 
@@ -154,11 +183,16 @@ def _ptxas_lines(report: str):
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
-            # <mangled prefix><len><kernel>ILi<hd>E...: keep the kernel's name and hd
+            # <mangled prefix><len><kernel>ILi<hd>E... or ...I<type>E...: keep
+            # the kernel's name and its template argument
             t = re.search(r"(\w+?)ILi(\d+)E", name)
+            u = re.search(r"(\w+?)I(f|13__nv_bfloat16)E", name)
             if t:
                 kernel = re.sub(r"^.*\d", "", t.group(1))
                 name = f"{kernel}<hd={t.group(2)}>"
+            elif u:
+                kernel = re.sub(r"^.*\d", "", u.group(1))
+                name = f"{kernel}<{'float' if u.group(2) == 'f' else 'bf16'}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spills = f"spills {m.group(1)}/{m.group(2)} B"
@@ -171,20 +205,28 @@ def _ptxas_lines(report: str):
 def phase_build():
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
-    b = build.build("flash_attention")
-    log("build", f"{b.name}.cu " + (f"compiled in {b.seconds:.1f} s" if b.seconds
-                                    else f"reused {b.path.name}"))
-    for line in _ptxas_lines(b.report):
-        log("build", line)
+    from repro_torch.kernels import ssd_scan as ssd
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        built = list(pool.map(build.build, KERNEL_SOURCES))
+    log("build", f"{len(built)} sources in {time.perf_counter() - t0:.1f} s wall, in parallel")
+    for b in built:
+        log("build", f"{b.name}.cu " + (f"compiled in {b.seconds:.1f} s" if b.seconds
+                                        else f"reused {b.path.name}"))
+        for line in _ptxas_lines(b.report):
+            log("build", line)
     log("build", "flash_attention dynamic shared memory per block: " + ", ".join(
         f"{str(dt)[6:]} hd={hd} {fa.smem_bytes(hd, dt)} B" for dt in (BF16, F32) for hd in (64, 128)))
+    log("build", "ssd_scan dynamic shared memory per block (either dtype): " + ", ".join(
+        f"Q={q} hd={hd} ds={ds} {ssd.smem_bytes(q, hd, ds)} B"
+        for q, hd, ds in ((128, 64, 128), (64, 32, 16))))
 
 
 def _rand(rng, shape, dtype):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dtype)
 
 
-def phase_kernel(seed: int) -> dict:
+def kernel_flash(seed: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import ref_gqa_attention
     rng = np.random.default_rng(seed)
@@ -253,29 +295,155 @@ def phase_kernel(seed: int) -> dict:
             "library_ms": library_ms}
 
 
+def _ssd_inputs(rng, Bb, S, nh, hd, g, ds, dtype, *, strided: bool = False,
+                model_dt: bool = False):
+    """x, dt, A, B, C on the card, drawn as tests/test_kernels.py draws them,
+    except that B and C have std min(1, (16/ds)^(1/4)): C Bᵀ then spreads as
+    at ds 16 and |y| stays under 16, where the bf16 tolerance 1e-1 exceeds one
+    bf16 step of y (0.0625). At unit std and ds 128 the plain bf16 route,
+    which rounds C Bᵀ to bf16 as the JAX version does, moves y by a whole
+    step of 0.125 beside the kernel's f32 C Bᵀ.
+    ``strided``: x, B and C are views of one (Bb, S, conv_ch) tensor, as the
+    model hands them over. ``model_dt``: unit std, and dt and A as the
+    full-width model draws them (dt = softplus(N(0, 0.55^2)), A = -1), so
+    that cum falls to about -96 within a chunk of 128, past f32's exp
+    underflow."""
+    bc_std = 1.0 if model_dt else min(1.0, (16 / ds) ** 0.25)
+    if strided:
+        xbc = torch.from_numpy(rng.standard_normal((Bb, S, nh * hd + 2 * g * ds))
+                               .astype(np.float32))
+        xbc[..., nh * hd:] *= bc_std
+        xbc = xbc.to("cuda", dtype)
+        x, B, C = torch.split(xbc, [nh * hd, g * ds, g * ds], dim=-1)
+        x, B, C = x.reshape(Bb, S, nh, hd), B.reshape(Bb, S, g, ds), C.reshape(Bb, S, g, ds)
+    else:
+        x = _rand(rng, (Bb, S, nh, hd), dtype)
+        B, C = ((_rand(rng, (Bb, S, g, ds), F32) * bc_std).to(dtype) for _ in range(2))
+    if model_dt:
+        dt = np.log1p(np.exp(0.55 * rng.standard_normal((Bb, S, nh))))
+        A = -np.ones(nh)
+    else:
+        dt = rng.uniform(0.01, 0.2, (Bb, S, nh))
+        A = -rng.uniform(0.5, 2.0, nh)
+    return (x, torch.from_numpy(dt.astype(np.float32)).cuda(),
+            torch.from_numpy(A.astype(np.float32)).cuda(), B, C)
+
+
+def plain_ssd(x, dt, A, B, C, chunk):
+    """The plain version as the wrapper's CPU route runs it: B and C
+    repeated to every head, then ``ref_ssd_chunked``."""
+    from repro_torch.kernels.ref import ref_ssd_chunked
+    rep = x.shape[2] // B.shape[2]
+    return ref_ssd_chunked(x, dt, A, B.repeat_interleave(rep, dim=2),
+                           C.repeat_interleave(rep, dim=2), chunk)
+
+
+def ssd_flops(Bb, S, nh, hd, ds, chunk) -> int:
+    """What the chunked algorithm needs: C Bᵀ and its product with x·dt over
+    the causal half of each Q x Q tile, C hᵀ and the state update in full."""
+    Q = min(chunk, S)
+    tri = Q * (Q + 1) // 2
+    return Bb * nh * (S // Q) * (2 * tri * ds + 2 * tri * hd + 4 * Q * hd * ds)
+
+
+def kernel_ssd(seed: int) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
+    rng = np.random.default_rng(seed + 2)
+    failures, slice_err = [], None
+    cases = [(*c, False) for c in SSD_CASES] + [
+        ("slice_decay", 4, 1024, 24, 64, 1, 128, 128, F32, True)]
+    for label, Bb, S, nh, hd, g, ds, chunk, dt, model_dt in cases:
+        x, dtv, A, B, C = _ssd_inputs(rng, Bb, S, nh, hd, g, ds, dt,
+                                      strided=label.startswith("slice"), model_dt=model_dt)
+        y, h = ssd.ssd_scan(x, dtv, A, B, C, chunk=chunk)
+        yr, hr = plain_ssd(x, dtv, A, B, C, chunk)
+        torch.cuda.synchronize()
+        err = (y.float() - yr.float()).abs().max().item()
+        y_tol = SSD_ATOL[dt]
+        if model_dt:    # y reaches about 1e2 here: the f32 tolerance relative to it
+            y_tol *= max(1.0, yr.abs().max().item())
+        h_err = (h - hr).abs().max().item()
+        h_tol = SSD_H_RTOL * max(1.0, hr.abs().max().item())
+        ok = (y.dtype == dt and y.shape == x.shape and h.shape == hr.shape
+              and bool(torch.isfinite(y.float()).all()) and err <= y_tol and h_err <= h_tol)
+        excess = ""
+        if dt == BF16:                        # against the plain version's f32 output
+            yr32, _ = plain_ssd(x.float(), dtv, A, B.float(), C.float(), chunk)
+            xs = rounding_excess(y, yr32)
+            ok = ok and xs <= SSD_ROUNDING_EXCESS_TOL
+            excess = f", beyond half a bf16 step {xs:.3g} (tol {SSD_ROUNDING_EXCESS_TOL:g})"
+        log("kernel", f"ssd_scan {label} Bb={Bb} S={S} nh={nh} hd={hd} g={g} ds={ds} "
+                      f"chunk={chunk} {str(dt)[6:]}: y max_abs_err {err:.3g} (tol {y_tol:.3g}; "
+                      f"max|y| {yr.float().abs().max().item():.3g}), h max_abs_err {h_err:.3g} "
+                      f"(tol {h_tol:.3g}){excess} {'ok' if ok else 'DISAGREES'}")
+        if not ok:
+            failures.append(label)
+        if label == "slice" and dt == BF16:
+            slice_err = err
+    if failures:
+        raise RuntimeError(f"ssd_scan disagrees with its plain version: {failures}")
+
+    # timing at the serve path's shapes, type and layout
+    _, Bb, S, nh, hd, g, ds, chunk, dt = SSD_CASES[0]
+    x, dtv, A, B, C = _ssd_inputs(rng, Bb, S, nh, hd, g, ds, dt, strided=True)
+    ms = cuda_ms(lambda: ssd.ssd_scan(x, dtv, A, B, C, chunk=chunk), 50)
+    plain_ms = cuda_ms(lambda: plain_ssd(x, dtv, A, B, C, chunk), 10)
+    ms2 = cuda_ms(lambda: ssd.ssd_scan(x, dtv, A, B, C, chunk=chunk), 50)
+    es = x.element_size()
+    nbytes = (2 * x.numel() + B.numel() + C.numel()) * es + (dtv.numel() + A.numel()) * 4 \
+        + Bb * nh * hd * ds * 4                                     # h out in f32
+    flops = ssd_flops(Bb, S, nh, hd, ds, chunk)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dt] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    log("kernel", f"ssd_scan timing Bb={Bb} S={S} nh={nh} hd={hd} g={g} ds={ds} chunk={chunk} "
+                  f"bf16, strided x/B/C: kernel {ms:.4f} ms and {ms2:.4f} ms (two runs), plain "
+                  f"{plain_ms:.4f} ms, no library call; bound {bound_ms * 1e3:.2f} us = "
+                  f"max({nbytes / 1e6:.2f} MB at 3.35 TB/s, {flops / 1e9:.3f} GFLOP at "
+                  f"989 TFLOP/s); {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s, "
+                  f"{bound_ms / ms:.2%} of the bound; {Bb * nh} blocks on "
+                  f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:20",
+            "launches": None, "max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+
+
+def phase_kernel(seed: int) -> list:
+    return [kernel_flash(seed), kernel_ssd(seed)]
+
+
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     fa.flash_attention.launches = 0
+    ssd.ssd_scan.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import flash_attention as fa
-    return {"flash_attention": fa.flash_attention.launches}
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fa.flash_attention.launches, "ssd_scan": ssd.ssd_scan.launches}
 
 
-def phase_serve(seed: int) -> dict:
+def phase_serve(arch: str, seed: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models.model import init_params
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
+    kernel, mixer = PATH_KERNEL[arch]
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                   (SERVE_BATCH, SERVE_PROMPT[arch]))
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
     prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"))
-    log("serve", f"{ARCH} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {cfg.vocab_size}, "
+    mixers = (f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_head_dim}, d_state {cfg.ssm_state}"
+              if mixer == "M" else f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
+    log("serve", f"{arch} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                 f"{mixers}, vocab {cfg.vocab_size}, "
                  f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}; prompts {tuple(prompts.shape)}")
 
     times = []
@@ -292,15 +460,18 @@ def phase_serve(seed: int) -> dict:
     reset_counts()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
-    after_prefill = read_counts()["flash_attention"]
+    after_prefill = read_counts()[kernel]
     stats: dict = {}
     out = serve.generate(cfg, params, prompts, SERVE_GEN, stats=stats)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    if after_prefill != cfg.num_layers:
-        raise RuntimeError(f"prefill launched flash_attention {after_prefill} times, "
-                           f"not once per layer ({cfg.num_layers})")
+    n_layers = cfg.pattern.count(mixer) * cfg.num_periods
+    if after_prefill != n_layers:
+        raise RuntimeError(f"prefill launched {kernel} {after_prefill} times, "
+                           f"not once per layer ({n_layers})")
+    if counts[kernel] != after_prefill:
+        raise RuntimeError(f"generate launched {kernel}: its prompt is stepped through decode")
     if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.vocab_size) or \
             not torch.isfinite(logits.float()).all():
         raise RuntimeError(f"prefill logits are malformed: {tuple(logits.shape)}")
@@ -310,10 +481,10 @@ def phase_serve(seed: int) -> dict:
     agree = int((logits[:, -1].argmax(-1) == out[:, 0]).sum())
     decode_ms = stats["decode_s"] / stats["decode_steps"] * 1e3
     log("serve", f"prefill_ms {prefill_ms:.3f} (median of {len(times) - 1}: "
-                 f"{', '.join(f'{t:.3f}' for t in times[1:])}); flash_attention launches "
+                 f"{', '.join(f'{t:.3f}' for t in times[1:])}); {kernel} launches "
                  f"in one prefill {after_prefill}")
     log("serve", f"generate: prompt stepped through decode in {stats['prefill_s']:.3f} s "
-                 f"({SERVE_BATCH * SERVE_PROMPT / stats['prefill_s']:.1f} tok/s), "
+                 f"({prompts.size / stats['prefill_s']:.1f} tok/s), "
                  f"decode_ms_per_step {decode_ms:.3f}, "
                  f"{SERVE_BATCH * SERVE_GEN / stats['decode_s']:.1f} generated tok/s, "
                  f"max_memory_allocated {peak / 2**30:.3f} GiB; "
@@ -332,6 +503,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd" in low:
         return "attention kernel"
+    if "ssd_chunk_scan" in low:
+        return "SSD kernel"
     if any(m in low for m in GEMM_MARKS):
         return "gemm"
     return "other"
@@ -397,11 +570,11 @@ def _leaves(tree):
         yield tree
 
 
-def phase_parity(seed: int):
+def parity_flash(seed: int):
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, prefill_step
     dev = torch.device("cuda")
-    cfg = get_config(ARCH).replace(dtype="float32")
+    cfg = get_config(QWEN).replace(dtype="float32")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     tokens = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT))
@@ -413,7 +586,7 @@ def phase_parity(seed: int):
     torch.cuda.synchronize()
     diff = (kern - plain).abs().max().item()
     ok = launched == cfg.num_layers and bool(torch.isfinite(kern).all()) and diff <= PARITY_ATOL
-    log("parity", f"{ARCH} full width f32, TF32 off, prompts {tokens.shape}: last-position "
+    log("parity", f"{QWEN} full width f32, TF32 off, prompts {tokens.shape}: last-position "
                   f"logits through the kernel ({launched} launches) vs the plain chunked "
                   f"path: max_abs_diff {diff:.3g} (tol {PARITY_ATOL:g}; logits max "
                   f"{plain.abs().max().item():.3g}) {'ok' if ok else 'FAILED'}")
@@ -421,6 +594,42 @@ def phase_parity(seed: int):
         raise RuntimeError("kernel-route prefill disagrees with the plain route")
     del params
     torch.cuda.empty_cache()
+
+
+def parity_ssd(seed: int):
+    """The kernel route on the card against the plain route, which runs only
+    on the CPU, from a copy of the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, prefill_step
+    dev = torch.device("cuda")
+    cfg = get_config(MAMBA).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    tokens = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT)))
+    before = read_counts()["ssd_scan"]
+    kern = prefill_step(cfg, params, {"tokens": tokens.to(dev)}).float().cpu()
+    launched = read_counts()["ssd_scan"] - before
+    t0 = time.perf_counter()
+    plain = prefill_step(cfg, _to_cpu(params), {"tokens": tokens}).float()
+    cpu_s = time.perf_counter() - t0
+    diff = (kern - plain).abs().max().item()
+    n_layers = cfg.pattern.count("M") * cfg.num_periods
+    ok = launched == n_layers and bool(torch.isfinite(kern).all()) and diff <= PARITY_ATOL
+    log("parity", f"{MAMBA} full width f32, TF32 off, prompts {tuple(tokens.shape)}: last-position "
+                  f"logits through the SSD kernel on the card ({launched} launches) vs the plain "
+                  f"chunked scan on the CPU ({cpu_s:.1f} s): max_abs_diff {diff:.3g} (tol "
+                  f"{PARITY_ATOL:g}; logits max {plain.abs().max().item():.3g}) "
+                  f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise RuntimeError("kernel-route prefill disagrees with the plain route")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
 
 
 def main(argv=None) -> int:
@@ -433,26 +642,29 @@ def main(argv=None) -> int:
         phase = "build"
         phase_build()
         phase = "kernel"
-        kernels = [phase_kernel(args.seed)]
-        phase = "serve"
-        counts, model = phase_serve(args.seed)
-        for k in kernels:
-            k["launches"] = counts[k["name"]]
+        kernels = phase_kernel(args.seed)
+        by_name = {k["name"]: k for k in kernels}
+        for arch in (QWEN, MAMBA):
+            phase = "serve"
+            counts, model = phase_serve(arch, args.seed)
+            name = PATH_KERNEL[arch][0]
+            by_name[name]["launches"] = counts[name]
+            phase = "profile"
+            phase_profile(*model)
+            del model
+            torch.cuda.empty_cache()
         missing = [k["name"] for k in kernels if not k["launches"]]
         if missing:
             raise RuntimeError(f"kernels of the path never launched on the main path: {missing}")
-        phase = "profile"
-        phase_profile(*model)
-        del model
-        torch.cuda.empty_cache()
         phase = "parity"
-        phase_parity(args.seed)
+        parity_flash(args.seed)
+        parity_ssd(args.seed)
         phase = "kernels"
         for k in kernels:
+            library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
             log("kernels", f"{k['name']} ({k['route']}, {k['source']}): check ok, "
                            f"launches {k['launches']}, {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
-                           f"library {k['library_ms']:.4f} ms, bound {k['bound_ms']:.5f} ms "
-                           f"({k['bound_by']})")
+                           f"library {library}, bound {k['bound_ms']:.5f} ms ({k['bound_by']})")
     except Exception:
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -17,3 +18,13 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive: {block_q}, {block_k}")
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def mamba_ssd(x, dt, A, B, C, D_skip=None, *, chunk: int = 128):
+    """SSD scan + optional D-skip. Shapes as in ``kernels.ssd_scan``; B and C
+    may carry groups. Returns (y, h): the JAX version drops the final state
+    h, which the model's ``mamba_fwd`` returns."""
+    y, h = ssd_scan(x, dt, A, B, C, chunk=chunk)
+    if D_skip is not None:
+        y = y + x * D_skip[None, None, :, None]
+    return y, h

@@ -1,7 +1,8 @@
-"""Batched serving loop: build the KV cache from a batch of prompts, then
+"""Batched serving loop: build the cache (KV ring for attention layers,
+conv ring and SSM state for Mamba-2 layers) from a batch of prompts, then
 decode tokens greedily against it.
 
-    python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke \
+    python -m repro_torch.launch.serve --arch mamba2-130m --smoke \
         --batch 4 --prompt-len 32 --gen 16 [--device cpu]
 
 Deployment planning (``--plan-topo``) and the measured-time feedback loop
@@ -69,7 +70,7 @@ def generate(cfg, params, prompts, gen_tokens: int, stats: dict | None = None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=list(ARCH_IDS), default="qwen2-1.5b")
+    ap.add_argument("--arch", choices=list(ARCH_IDS), default="mamba2-130m")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -84,6 +85,7 @@ def main(argv=None):
     params = init_params(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}")
     t0 = time.perf_counter()
     stats: dict = {}
     out = generate(cfg, params, prompts, args.gen, stats=stats)

@@ -1,5 +1,5 @@
-"""Top-level LM: embeddings, decoder stack, tied or untied head, prefill and
-decode steps, for the serving path.
+"""Top-level LM: embeddings, decoder stack (attention and Mamba-2 layers),
+tied or untied head, prefill and decode steps, for the serving path.
 
 Audio and vision frontends are not ported yet (ROADMAP: frontend stubs).
 """
@@ -50,7 +50,8 @@ def _head(cfg, params, h):
 def forward(cfg: ModelConfig, params, batch):
     """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns the final
     hidden states (B, S, D). The JAX version also returns the MoE aux loss
-    and the frontend prefix length; this dense, text-only slice has neither."""
+    and the frontend prefix length; the ported layers have no MoE and no
+    frontend, so neither exists here."""
     tokens = batch["tokens"]
     x = params["embed"][tokens] * (cfg.d_model ** 0.5)
     pos = torch.arange(tokens.shape[1], device=tokens.device)

@@ -2,33 +2,31 @@
 iteration per period. Parameters and caches keep ``repro``'s layout, with a
 leading ``num_periods`` dim on every leaf.
 
-This slice ports the dense attention layer ('A' mixer + SwiGLU FFN). Mamba
-('M') and MoE layers raise NotImplementedError until their slices land
-(ROADMAP, queue 1: MoE slice, SSM slice).
+Each layer is a mixer ('A' attention or 'M' Mamba-2) and an optional dense
+SwiGLU FFN. MoE FFN layers raise NotImplementedError until their slice lands
+(ROADMAP, queue 1: MoE slice).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamDef, index_tree, mlp_defs, mlp_fwd, rms_norm, stack_defs)
 
 
-def _check_layer(cfg, j: int, ch: str):
-    if ch != "A":
-        raise NotImplementedError(
-            f"{cfg.name}: '{ch}' mixer layers are not ported yet (ROADMAP: SSM slice)")
+def _check_layer(cfg, j: int):
     if cfg.num_experts > 0 and cfg.d_ff > 0 and j % cfg.moe_every == cfg.moe_every - 1:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (ROADMAP: MoE slice)")
 
 
 def layer_defs(cfg, j: int, ch: str) -> dict:
-    _check_layer(cfg, j, ch)
+    _check_layer(cfg, j)
     D = cfg.d_model
     defs = {"norm1": ParamDef((D,), ("embed",), init="ones"),
-            "mixer": attn.attn_defs(cfg)}
+            "mixer": attn.attn_defs(cfg) if ch == "A" else ssm_mod.ssm_defs(cfg)}
     if cfg.d_ff > 0:
         defs["norm2"] = ParamDef((D,), ("embed",), init="ones")
         defs["ffn"] = mlp_defs(D, cfg.d_ff)
@@ -57,9 +55,13 @@ def stack_fwd(cfg, stacked, x, pos):
     for i in range(cfg.num_periods):
         pparams = index_tree(stacked, i)
         for j, ch in enumerate(cfg.pattern):
-            _check_layer(cfg, j, ch)
+            _check_layer(cfg, j)
             lp = pparams[f"layer{j}"]
-            mix, _ = attn.attention(cfg, lp["mixer"], rms_norm(x, lp["norm1"], cfg.norm_eps), pos)
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if ch == "A":
+                mix, _ = attn.attention(cfg, lp["mixer"], h, pos)
+            else:
+                mix, _ = ssm_mod.mamba_fwd(cfg, lp["mixer"], h)
             x = _ffn(cfg, lp, x + mix)
     return x
 
@@ -69,8 +71,11 @@ def stack_fwd(cfg, stacked, x, pos):
 def init_stacked_cache(cfg, batch: int, cache_len: int, dtype, device):
     cache = {}
     for j, ch in enumerate(cfg.pattern):
-        _check_layer(cfg, j, ch)
-        per = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+        _check_layer(cfg, j)
+        if ch == "A":
+            per = attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
+        else:
+            per = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
         cache[f"layer{j}"] = {
             k: t.unsqueeze(0).repeat(cfg.num_periods, *([1] * t.dim()))
             for k, t in per.items()}
@@ -83,10 +88,12 @@ def stack_decode(cfg, stacked, cache, x, pos: int):
     for i in range(cfg.num_periods):
         pparams, pcache = index_tree(stacked, i), index_tree(cache, i)
         for j, ch in enumerate(cfg.pattern):
-            _check_layer(cfg, j, ch)
+            _check_layer(cfg, j)
             lp = pparams[f"layer{j}"]
-            mix, _ = attn.decode_attention(
-                cfg, lp["mixer"], rms_norm(x, lp["norm1"], cfg.norm_eps),
-                pcache[f"layer{j}"], pos)
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if ch == "A":
+                mix, _ = attn.decode_attention(cfg, lp["mixer"], h, pcache[f"layer{j}"], pos)
+            else:
+                mix, _ = ssm_mod.mamba_decode(cfg, lp["mixer"], h, pcache[f"layer{j}"])
             x = _ffn(cfg, lp, x + mix)
     return x, cache

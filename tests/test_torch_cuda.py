@@ -2,11 +2,14 @@
 inputs. Needs a CUDA device and nvcc; skips without a card.
 
 Run on the card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
-Tolerances: f32 2e-5 (summation order; TF32 off for the plain version),
-bf16 3e-2 (one bf16 rounding of the output), as tests/test_kernels.py. In
-bf16 the output may also differ from the plain version run in f32 by at
-most 1e-4 beyond half a bf16 step: P V is computed in f32 precision, as on
-the TPU (P rounded to bf16 would exceed it by about 3e-3).
+Tolerances, as tests/test_kernels.py. Flash attention: f32 2e-5 (summation
+order; TF32 off for the plain version), bf16 3e-2 (one bf16 rounding of the
+output). In bf16 the output may also differ from the plain version run in
+f32 by at most 1e-4 beyond half a bf16 step: P V is computed in f32
+precision, as on the TPU (P rounded to bf16 would exceed it by about 3e-3).
+SSD scan: y f32 1e-4, bf16 1e-1; the f32 state h 1e-4 x max(1, max|h|); in
+bf16 y may differ from the plain version run in f32 by at most 1e-4 beyond
+half a bf16 step (the kernel computes in f32 and rounds y once).
 """
 import numpy as np
 import pytest
@@ -14,7 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa_mod
-from repro_torch.kernels.ref import ref_gqa_attention
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.kernels.ref import ref_gqa_attention, ref_ssd_chunked
 
 CASES = {
     # name: (B, S, H, KV, hd, causal, window)
@@ -53,7 +57,71 @@ def test_flash_kernel_matches_plain(case, dtype, atol):
     assert err <= atol, (case, dtype, err)
     if dt == torch.bfloat16:                  # against the plain version in f32
         ref = ref_gqa_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
-        _, e = torch.frexp(ref)
-        half_ulp = torch.where(ref == 0, 0.0, torch.exp2((e - 9).float()))
-        excess = ((o.float() - ref).abs() - half_ulp).max().item()
-        assert excess <= 1e-4, (case, excess)
+        assert _rounding_excess(o, ref) <= 1e-4, (case, _rounding_excess(o, ref))
+
+
+def _rounding_excess(o, ref) -> float:
+    """Largest |o - ref| beyond half a bf16 step of ref."""
+    _, e = torch.frexp(ref)
+    half_ulp = torch.where(ref == 0, 0.0, torch.exp2((e - 9).float()))
+    return ((o.float() - ref).abs() - half_ulp).max().item()
+
+
+SSD_CASES = {
+    # name: (Bb, S, nh, hd, g, ds, chunk)
+    "serve_slice": (4, 1024, 24, 64, 1, 128, 128),
+    "sweep_S128": (2, 128, 2, 32, 2, 16, 64),
+    "sweep_S256": (2, 256, 4, 64, 4, 32, 128),
+    "sweep_S192": (2, 192, 1, 16, 1, 8, 64),
+    "groups": (2, 256, 8, 32, 2, 64, 128),
+    "padded": (1, 150, 3, 24, 1, 20, 50),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 1e-1)])
+@pytest.mark.parametrize("case", sorted(SSD_CASES))
+def test_ssd_kernel_matches_plain(case, dtype, atol, strided):
+    """``strided``: x, B and C are views of one (Bb, S, conv_ch) tensor, as
+    the model hands them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Bb, S, nh, hd, g, ds, chunk = SSD_CASES[case]
+    rng = np.random.default_rng(1)
+    dt_ = getattr(torch, dtype)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to("cuda", dt_)
+
+    # B and C at std min(1, (16/ds)^(1/4)): C Bᵀ spreads as at ds 16 and |y|
+    # stays under 16, where 1e-1 exceeds one bf16 step of y. At unit std and
+    # ds 128 the plain bf16 route, which rounds C Bᵀ to bf16 as JAX does,
+    # moves y by a whole step (0.125) beside the kernel's f32 C Bᵀ.
+    bc_std = min(1.0, (16 / ds) ** 0.25)
+    if strided:
+        xbc = rand(Bb, S, nh * hd + 2 * g * ds).float()
+        xbc[..., nh * hd:] *= bc_std
+        x, B, C = torch.split(xbc.to(dt_), [nh * hd, g * ds, g * ds], dim=-1)
+        x, B, C = x.reshape(Bb, S, nh, hd), B.reshape(Bb, S, g, ds), C.reshape(Bb, S, g, ds)
+    else:
+        x = rand(Bb, S, nh, hd)
+        B, C = ((rand(Bb, S, g, ds).float() * bc_std).to(dt_) for _ in range(2))
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (Bb, S, nh)).astype(np.float32)).cuda()
+    A = torch.from_numpy(-rng.uniform(0.5, 2.0, nh).astype(np.float32)).cuda()
+    before = ssd_mod.ssd_scan.launches
+    y, h = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_mod.ssd_scan.launches == before + 1
+    rep = nh // g
+    Bh, Ch = B.repeat_interleave(rep, dim=2), C.repeat_interleave(rep, dim=2)
+    yr, hr = ref_ssd_chunked(x, dt, A, Bh, Ch, chunk)
+    assert y.dtype == dt_ and y.shape == x.shape and h.shape == hr.shape
+    err = (y.float() - yr.float()).abs().max().item()
+    assert err <= atol, (case, dtype, err)
+    h_err = (h - hr).abs().max().item()
+    assert h_err <= 1e-4 * max(1.0, hr.abs().max().item()), (case, dtype, h_err)
+    if dt_ == torch.bfloat16:                 # against the plain version in f32
+        yr32, _ = ref_ssd_chunked(x.float(), dt, A, Bh.float(), Ch.float(), chunk)
+        assert _rounding_excess(y, yr32) <= 1e-4, (case, _rounding_excess(y, yr32))

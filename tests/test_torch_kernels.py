@@ -3,8 +3,9 @@ versions the wrapper runs for CPU tensors) against ``repro.kernels``, the
 Pallas kernel run in interpret mode and its jnp oracle, on the sweeps of
 tests/test_kernels.py. Inputs are drawn once with numpy and fed to both.
 
-Tolerances are those of tests/test_kernels.py: f32 2e-5 (summation order),
-bf16 3e-2 (one bf16 rounding of the output).
+Tolerances are those of tests/test_kernels.py. Flash attention: f32 2e-5
+(summation order), bf16 3e-2 (one bf16 rounding of the output). SSD scan:
+f32 1e-4, bf16 1e-1 (sums over a chunk of up to 128 steps).
 """
 import numpy as np
 import pytest
@@ -18,10 +19,15 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ops import gqa_flash_attention as jax_gqa_flash
+from repro.kernels.ops import mamba_ssd as jax_mamba_ssd
 from repro.kernels.ref import ref_attention as jax_ref
+from repro.kernels.ref import ref_ssd as jax_ref_ssd
+from repro.kernels.ssd_scan import ssd_scan as jax_ssd_scan
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import flash_attention as fa_mod
-from repro_torch.kernels.ops import gqa_flash_attention
-from repro_torch.kernels.ref import ref_attention
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.kernels.ops import gqa_flash_attention, mamba_ssd
+from repro_torch.kernels.ref import ref_attention, ref_ssd, ref_ssd_chunked
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -124,3 +130,117 @@ def test_flash_attention_rejects_bad_inputs(bad):
         q = q[0]
     with pytest.raises(ValueError):
         fa_mod.flash_attention(q, k, k)
+
+
+# --------------------------------------------------------------- SSD scan
+
+SSD_DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+              "bfloat16": (jnp.bfloat16, torch.bfloat16, 1e-1)}
+# (S, nh, hd, ds, chunk) of tests/test_kernels.py
+SSD_SWEEPS = [(128, 2, 32, 16, 64), (256, 4, 64, 32, 128), (192, 1, 16, 8, 64)]
+
+
+def _ssd_inputs(rng, S, nh, hd, ds, dtype, Bb=2, groups=None):
+    """x, dt, A, B, C as (jnp, torch) pairs, drawn as tests/test_kernels.py
+    draws them. B and C carry ``groups`` groups (default: one per head)."""
+    jdt, tdt, _ = SSD_DTYPES[dtype]
+    g = groups or nh
+    draws = [rng.standard_normal((Bb, S, nh, hd)),
+             rng.uniform(0.01, 0.2, (Bb, S, nh)),
+             -rng.uniform(0.5, 2.0, (nh,)),
+             rng.standard_normal((Bb, S, g, ds)),
+             rng.standard_normal((Bb, S, g, ds))]
+    out = []
+    for i, a in enumerate(draws):
+        a = a.astype(np.float32)
+        if i == 2:                                    # A stays f32
+            out.append((jnp.asarray(a), torch.from_numpy(a)))
+        else:
+            out.append((jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", SSD_SWEEPS)
+def test_ref_ssd_matches_jax(S, nh, hd, ds, chunk, dtype):
+    """The sequential recurrence, y and h."""
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        np.random.default_rng(S + nh), S, nh, hd, ds, dtype)
+    yj, hj = jax_ref_ssd(xj, dj, aj, bj, cj)
+    y, h = ref_ssd(xt, dt_, at, bt, ct)
+    atol = SSD_DTYPES[dtype][2]
+    assert y.dtype == xt.dtype and h.dtype == torch.float32
+    np.testing.assert_allclose(_np(y), _np(yj), atol=atol)
+    np.testing.assert_allclose(_np(h), _np(hj), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", SSD_SWEEPS)
+def test_ref_ssd_chunked_matches_jax(S, nh, hd, ds, chunk, dtype):
+    """The chunked algorithm against ``repro.models.ssm.ssd_chunked``, y and h."""
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        np.random.default_rng(S + hd), S, nh, hd, ds, dtype)
+    yj, hj = jax_ssd_chunked(xj, dj, aj, bj, cj, chunk)
+    y, h = ref_ssd_chunked(xt, dt_, at, bt, ct, chunk)
+    atol = SSD_DTYPES[dtype][2]
+    np.testing.assert_allclose(_np(y), _np(yj), atol=atol)
+    np.testing.assert_allclose(_np(h), _np(hj), atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", SSD_SWEEPS)
+def test_ssd_scan_cpu_route_matches_pallas(S, nh, hd, ds, chunk, dtype):
+    """The wrapper's CPU route against the Pallas kernel in interpret mode
+    (y) and the JAX recurrence (h, which the Pallas kernel drops)."""
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        np.random.default_rng(S + ds), S, nh, hd, ds, dtype)
+    yj = jax_ssd_scan(xj, dj, aj, bj, cj, chunk=chunk)
+    _, hj = jax_ref_ssd(xj, dj, aj, bj, cj)
+    y, h = ssd_mod.ssd_scan(xt, dt_, at, bt, ct, chunk=chunk)
+    atol = SSD_DTYPES[dtype][2]
+    assert y.shape == xt.shape and y.dtype == xt.dtype
+    np.testing.assert_allclose(_np(y), _np(yj), atol=atol)
+    np.testing.assert_allclose(_np(h), _np(hj), atol=atol)
+
+
+@pytest.mark.parametrize("groups", [1, 2])
+def test_mamba_ssd_with_groups_matches_jax(groups):
+    """B and C with fewer groups than heads, against the JAX wrapper on the
+    repeated heads (as ``repro.models.ssm.mamba_fwd`` repeats them), with
+    the D-skip."""
+    nh = 4
+    (xj, xt), (dj, dt_), (aj, at), (bj, bt), (cj, ct) = _ssd_inputs(
+        np.random.default_rng(groups), 128, nh, 32, 16, "float32", groups=groups)
+    D = np.random.default_rng(9).standard_normal(nh).astype(np.float32)
+    rep = nh // groups
+    yj = jax_mamba_ssd(xj, dj, aj, jnp.repeat(bj, rep, axis=2), jnp.repeat(cj, rep, axis=2),
+                       jnp.asarray(D), chunk=64)
+    y, h = mamba_ssd(xt, dt_, at, bt, ct, torch.from_numpy(D), chunk=64)
+    np.testing.assert_allclose(_np(y), _np(yj), atol=1e-4)
+    _, hj = jax_ssd_chunked(xj, dj, aj, jnp.repeat(bj, rep, axis=2), jnp.repeat(cj, rep, axis=2),
+                            64)
+    np.testing.assert_allclose(_np(h), _np(hj), atol=1e-4)
+
+
+def test_ssd_scan_cpu_call_launches_nothing():
+    (_, xt), (_, dt_), (_, at), (_, bt), (_, ct) = _ssd_inputs(
+        np.random.default_rng(0), 64, 2, 16, 8, "float32")
+    before = ssd_mod.ssd_scan.launches
+    ssd_mod.ssd_scan(xt, dt_, at, bt, ct, chunk=32)
+    assert ssd_mod.ssd_scan.launches == before
+
+
+@pytest.mark.parametrize("bad", ["ragged", "groups", "dtype", "dt_shape"])
+def test_ssd_scan_rejects_bad_inputs(bad):
+    """A sequence that is not a multiple of the chunk raises, where JAX
+    asserts; so do groups that do not divide the heads and mixed dtypes."""
+    S, nh, g = 96, 4, 1
+    if bad == "ragged":
+        S = 100
+    elif bad == "groups":
+        g = 3
+    x = torch.zeros(1, S, nh, 16)
+    dt = torch.zeros(1, S, nh if bad != "dt_shape" else nh + 1)
+    B = torch.zeros(1, S, g, 8, dtype=torch.bfloat16 if bad == "dtype" else torch.float32)
+    with pytest.raises(ValueError):
+        ssd_mod.ssd_scan(x, dt, -torch.ones(nh), B, B.clone(), chunk=64)

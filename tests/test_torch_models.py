@@ -237,7 +237,7 @@ def test_bf16_prefill_matches(impl):
     np.testing.assert_allclose(_np(lg), _np(lg_ref), atol=BF16_ATOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "olmoe-1b-7b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "olmoe-1b-7b", "musicgen-large"])
 def test_unported_layers_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.model_defs(get_reduced(arch))

@@ -37,9 +37,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2-1.5b"
 
 
-def _weights_and_prompts(B, P, seed=0):
-    jcfg = jax_get_reduced(ARCH).replace(dtype="float32")
-    tcfg = get_reduced(ARCH).replace(dtype="float32")
+def _weights_and_prompts(B, P, seed=0, arch=ARCH):
+    jcfg = jax_get_reduced(arch).replace(dtype="float32")
+    tcfg = get_reduced(arch).replace(dtype="float32")
     jp = jmodels.init_params(jcfg, jax.random.PRNGKey(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), torch.device("cpu"))
     prompts = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (B, P))
@@ -56,6 +56,17 @@ def test_generate_gives_the_jax_tokens(B, P, gen, seed):
     np.testing.assert_array_equal(out.numpy(), ref)
     assert stats["decode_steps"] == gen
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
+
+
+@pytest.mark.parametrize("B,P,gen,seed", [(2, 8, 8, 0), (3, 5, 12, 1)])
+def test_mamba_generate_gives_the_jax_tokens(B, P, gen, seed):
+    """Reduced mamba2-130m: the prompt is stepped through ``mamba_decode``
+    and the conv ring and SSM state carry it, in both packages."""
+    jcfg, tcfg, jp, tp, prompts = _weights_and_prompts(B, P, seed, arch="mamba2-130m")
+    ref = np.asarray(jax_generate(jcfg, jp, jnp.asarray(prompts, jnp.int32), gen, AxisRules()))
+    out = tserve.generate(tcfg, tp, prompts, gen)
+    assert out.shape == (B, gen) and out.dtype == torch.int64
+    np.testing.assert_array_equal(out.numpy(), ref)
 
 
 def test_prefill_step_argmax_is_first_generated_token():
@@ -75,6 +86,17 @@ def test_serve_cli_runs_on_cpu():
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "generated (2, 4) tokens on cpu" in proc.stdout
+
+
+def test_serve_cli_defaults_to_mamba():
+    """Without ``--arch`` the launcher serves mamba2-130m, as ``repro``'s does."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--device", "cpu",
+         "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "serving mamba2-smoke" in proc.stdout and "generated (2, 4) tokens on cpu" in proc.stdout
 
 
 def test_resolve_device():
