@@ -39,9 +39,9 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` unless its library exists already."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, csrc: Path = CSRC) -> Built:
+    """Compile ``<csrc>/<name>.cu`` unless its library exists already."""
+    src = Path(csrc) / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
     report = so.with_suffix(".ptxas.txt")

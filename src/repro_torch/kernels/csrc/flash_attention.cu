@@ -9,48 +9,83 @@
 // max(l, 1e-30), and the output in the input dtype.
 //
 // Two kernels, one per input type:
-//   - bf16 (the serve path): both products on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate). Four warps own 16 query
-//     rows each of a 64-row Q tile; K and V tiles of 64 keys arrive by
-//     cp.async into a two-stage ring in shared memory, so the next tile loads
-//     while this one is computed. P V keeps P in f32 precision, as the TPU
-//     kernel does: P goes to the tensor cores as a bf16 high part plus a bf16
-//     residual, two products into one f32 accumulator (V is bf16, so exact).
+//   - bf16 (the serve path): TMA loads and wgmma, below.
 //   - f32: f32 FMA on the CUDA cores, 256 threads each owning a 4 x 4 block
 //     of the 64 x 64 score tile, so the f32 result matches the plain version
-//     to summation order (tensor-core TF32 would not).
+//     to summation order (TF32 would not pass its 2e-5 gate). One block per
+//     (64-row q tile, head, batch), the softmax state in registers.
 //
-// What differs from the TPU design, in both:
-//   - One CUDA block per (q tile, head, batch). The TPU grid's sequential K
-//     axis, whose VMEM scratch carried the softmax state, becomes a loop over
-//     K tiles inside the block; the state lives in registers.
-//   - q/k/v are read in their (B, S, H|KV, hd) layout, and query head h reads
-//     KV head h / (H / KV): no transpose copies and no repeated KV heads.
-//   - K tiles fully above the causal diagonal, or fully below the window, are
-//     skipped. A ragged last tile (S not a multiple of 64) is masked: rows past
-//     S are neither read nor written, keys past S score -1e30.
-//   - The heaviest causal q tiles (those near the end of the sequence) are
-//     issued first, so the short ones fill the tail of the wave.
+// What both do differently from the TPU design: CUDA blocks run in parallel
+// and in no order, so the TPU grid's sequential K axis, whose VMEM scratch
+// carried the softmax state, becomes a loop over K tiles inside a block; q/k/v
+// are read in their (B, S, H|KV, hd) layout and query head h reads KV head
+// h / (H / KV) (no repeated KV heads, no transposes); K tiles wholly above
+// the causal diagonal or below the window are skipped; a ragged last tile is
+// masked.
 //
-// Bound at the serve slice's shapes (qwen2-1.5b prefill, B=4, S=512, H=12,
-// KV=2, hd=128, bf16, causal): FLOPs = 4 * B * H * hd * S(S+1)/2 = 3.23 GFLOP
-// (about 2 * B * H * S^2 * hd); bytes = q + o (6.29 MB each) + k + v (1.05 MB
-// each, read once thanks to the GQA indexing) = 14.7 MB. At the H100 SXM's
-// published peaks (989 TFLOP/s bf16, 3.35 TB/s, 700 W) that is
-// max(3.3 us, 4.4 us) = 4.4 us: memory-bound at this short prompt.
+// Bound at the serve slice's shapes (qwen2-1.5b prefill: B 4, S 512, H 12,
+// KV 2, hd 128, bf16, causal): 14.68 MB (q and o 6.29 MB each, k and v 1.05 MB
+// each, read once) is 4.38 us at 3.35 TB/s; 3.23 GFLOP is 3.26 us at 989
+// TFLOP/s (H100 SXM data sheet, 700 W). Memory-bound at this prompt length.
 //
-// What this simple design leaves on the table: mma.sync reaches about two
-// thirds of the tensor cores' rate, where wgmma reaches all of it; P V in
-// two bf16 products costs half as many tensor-core operations again as one
-// (P in bf16 would halve that, at a bf16 rounding of every weight); every
-// thread issues its own cp.async copies instead of one TMA copy per tile;
-// the 6 query heads that share a KV head each load it again (from L2);
-// 384 blocks of 64 rows fill the 132 SMs in about 1.5 waves, with causal
-// tiles of unequal length. A later PR moves to wgmma with TMA loads and a
-// persistent, warp-specialised schedule.
+// The bf16 kernel, and what it does about what held its mma.sync predecessor
+// back (128 threads and 87 KB of shared memory a block, each query head
+// loading its K and V again, cp.async addresses computed by every thread):
+//   - GQA: one block serves HEADS = 2 query heads of one KV head at one
+//     64-row q tile, so each K and V tile is loaded once for both: a third of
+//     the K/V traffic through L2 at G = 6. Two heads, not three or six: at the
+//     causal serve shape a first build with three heads a block (128 blocks)
+//     ran slower than with two (192 blocks) on the H100; with causal q tiles
+//     of 1 to 8 K tiles, more and smaller blocks fill the 132 SMs better. Any
+//     G works: the last block of a KV head leaves its second warpgroup idle
+//     when G is odd.
+//   - Loads: a producer warpgroup, of which one thread issues TMA copies
+//     (a 4-D tensor map over (hd, heads, S, B), boxes of 64 rows x 64
+//     columns, 128-byte swizzle) into a two-stage K/V ring with mbarriers.
+//     TMA fills what lies past S or hd with zeros, so hd pads to 64 or 128
+//     and the ragged tile needs no special load.
+//   - wgmma: each consumer warpgroup (setmaxnreg 240, the producer 24) owns
+//     its head's 64 query rows. S = Q K^T reads both operands from shared
+//     memory (K-major); O += P V takes P from registers and V from shared
+//     memory (MN-major), with P in f32 precision as a bf16 high part plus a
+//     bf16 residual: two products into one f32 accumulator, as the
+//     predecessor did, so the bf16 output stays within 1e-4 of the f32
+//     plain version beyond its own rounding.
+//   - Latency: the two consumer warpgroups interleave, one's softmax on the
+//     CUDA cores beside the other's products on the tensor cores, and the
+//     producer keeps the next tile's K and V in flight. The online softmax
+//     is the predecessor's (log2 domain, -1e30, max(l, 1e-30)), with exp2
+//     by the SFU's approximation; the mask, applied only on tiles that need
+//     it, is two column bounds a row.
+//   - Causal imbalance: a 1-D grid in which the q tile varies slowest, the
+//     heaviest tiles first, so the first wave takes the longest blocks.
+//   - Host: the shared-memory attribute is set once per kernel; each launch
+//     encodes three tensor maps (cuTensorMapEncodeTiled, fetched from the
+//     driver at first use).
+//
+// Measured (chip_smoke.py, scripts/kernel_ab.py and scripts/kernel_ablate.py;
+// NVIDIA H100 80GB HBM3, 700 W): 0.0203-0.0206 ms at the serve shape (device
+// time of a CUDA graph), 21.5 % of the bound, against 0.0426-0.0429 ms for
+// the mma.sync predecessor timed in turns in the same call and 0.0176-0.0177
+// ms for scaled_dot_product_attention (which rounds P to bf16). Not tensor-bound:
+// without Q K^T at all it takes 9 % less, with one P V product instead of two
+// 12 % less; each tile's chain of waits in the two warpgroups sets the pace.
+// Tried on the card and dropped: three query heads a block, overlapping the
+// softmax of tile i + 1 with P V of tile i inside a warpgroup, a ping-pong of
+// the two warpgroups on named barriers, a third K/V stage, 128-key tiles
+// (each as fast or slower).
+//
+// Left on the table: P V as two bf16 products costs half as many tensor-core
+// operations again as one; two heads a block still load K and V three times
+// per KV head at G = 6; no persistent schedule, so the heaviest causal q
+// tiles (8 K tiles) set the critical path; the output is stored from
+// registers, not by TMA.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -79,53 +114,123 @@ __device__ __forceinline__ bool keep(int qp, int kp, int S, int causal, int wind
   return k;
 }
 
-// ============================================================ bf16: mma.sync
+// ======================================================= bf16: TMA + wgmma
 
-namespace tc {
+namespace wg {
 
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
-constexpr int PAD = 8;        // bf16 elements of row padding: ldmatrix rows fall on distinct banks
+constexpr int HEADS = 2;            // query heads a block: one consumer warpgroup each
+constexpr int THREADS = 128 * (HEADS + 1);  // and one producer warpgroup
+constexpr int STAGES = 2;           // K/V tiles in flight
+constexpr int ATOM = 64;            // bf16 columns of one 128-byte swizzled row
+constexpr int SUBTILE = 64 * 128;   // bytes of a 64-row x 64-column swizzled sub-tile
+constexpr int MIN_SMEM = 116 * 1024;  // above half an SM's shared memory: one block per SM,
+                                      // so setmaxnreg always finds the registers it asks for
 
-__host__ __device__ constexpr int ld(int hd) { return hd + PAD; }
-// Q tile, then two stages of K and of V
-__host__ __device__ constexpr size_t smem_bytes(int hd) {
-  return sizeof(__nv_bfloat16) * (BQ + 4 * BK) * ld(hd);
+template <int HDP>
+__host__ __device__ constexpr int tile_bytes() {  // a 64-row x HDP-column tile
+  return HDP / ATOM * SUBTILE;
+}
+// Q tiles of the block's heads, K and V rings, barriers; 1024 bytes of slack
+// to align the base for the 128-byte swizzle
+template <int HDP>
+__host__ __device__ constexpr int smem_bytes() {
+  return 1024 + (HEADS + 2 * STAGES) * tile_bytes<HDP>() + 8 * (1 + 3 * STAGES) > MIN_SMEM
+             ? 1024 + (HEADS + 2 * STAGES) * tile_bytes<HDP>() + 8 * (1 + 3 * STAGES)
+             : MIN_SMEM;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; zero-filled when !pred (then nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(pred ? 16 : 0));
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                    unsigned b1) {
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One (64 columns, 1, 64 rows, 1) box of a (B, S, N, hd) tensor into shared
+// memory, 128-byte swizzled; what lies past hd or S arrives as zeros.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                         int col, int head, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(b), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for 128-byte swizzled tiles (rows of 128
+// bytes, groups of 8 rows 1024 bytes apart). K-major: the leading offset is
+// unused. MN-major (V, read along its rows): a 64-column instruction covers
+// one swizzle atom across, so only the 8-row stride is read; both offsets
+// carry it.
+__device__ __forceinline__ uint64_t desc_kmajor(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(1024 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // until at most N committed groups are pending
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of a register across the
+// asynchronous wgmma that owns it.
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void pin(unsigned& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// 2^x by the SFU's approximation (relative error about 2^-22); results below
+// 2^-126 flush to 0, far under what the softmax's sums can see.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (+)= A B, A and B in shared memory (both K-major), 64 x 64 x 16, f32 accumulate
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B, A (64 x 16) in registers, B in shared memory MN-major (trans-b), 64 x 64 x 16
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
@@ -142,192 +247,310 @@ __device__ __forceinline__ void split(float a, float b, unsigned& hi, unsigned& 
   lo = as_u32(__floats2bfloat162_rn(a - hf.x, b - hf.y));
 }
 
-// rows [row0, row0 + n) of a (S, *, HD) operand into a tile of row length ld(HD)
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long row_stride, int row0, int n, int S) {
-  constexpr int CHUNKS = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < n * CHUNKS; c += THREADS) {
-    const int r = c / CHUNKS, col = (c % CHUNKS) * 8, s = row0 + r;
-    const bool in = s < S;
-    cp_async16(dst + r * ld(HD) + col, src + (in ? s : 0) * row_stride + col, in);
+// One query head's online softmax over a 64 x 64 score tile `sc` (wgmma
+// layout, scaled to the log2 domain and masked here): updates the running
+// max m and denominator l, returns the accumulator's correction in corr, and
+// P in f32 precision as a bf16 high part and residual, the A fragments of
+// P V (keys 16 kk .. 16 kk + 15 are n-tiles 2 kk and 2 kk + 1 of S).
+__device__ __forceinline__ void softmax(float (&sc)[32], bool edge, int row0, int k0, int t, int S,
+                                        int causal, int window, float scale_log2, float (&m)[2],
+                                        float (&l)[2], float (&corr)[2], unsigned (&ph)[4][4],
+                                        unsigned (&pl)[4][4]) {
+  float mx[2] = {NEG_INF, NEG_INF};
+  if (edge) {
+    // keep() as column bounds of the tile: row r keeps columns lo[r] .. hi[r]
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qp = row0 + 8 * r;
+      hi[r] = (causal ? min(qp, S - 1) : S - 1) - k0;
+      lo[r] = causal && window > 0 ? qp - window + 1 - k0 : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = sc[4 * j + e];
+        const int col = 8 * j + 2 * t + (e % 2);
+        x = col < lo[e / 2] || col > hi[e / 2] ? NEG_INF : x * scale_log2;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      sc[e] *= scale_log2;
+      mx[(e % 4) / 2] = fmaxf(mx[(e % 4) / 2], sc[e]);
+    }
   }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    sc[e] = exp2_approx(sc[e] - m[(e % 4) / 2]);
+    sum[(e % 4) / 2] += sc[e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = corr[r] * l[r] + sum[r];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r], pl[kk][r]);
 }
 
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t. An accumulator
-// holds rows g and g + 8, columns 2t and 2t + 1 of its 16 x 8 tile.
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int H,
-              int KV, int causal, int window, float scale_log2) {
-  constexpr int LD = ld(HD);
-  constexpr int KSTEPS = HD / 16;  // k-steps of Q K^T
-  constexpr int DT = HD / 8;       // 8-wide column tiles of O
-  constexpr int NT = BK / 8;       // 8-wide key tiles of S
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem4);  // [BQ][LD]
-  __nv_bfloat16* sK = sQ + BQ * LD;                              // [2][BK][LD]
-  __nv_bfloat16* sV = sK + 2 * BK * LD;                          // [2][BK][LD]
+// Block = one 64-row q tile of HEADS query heads that share one KV head.
+// Warpgroups 0..HEADS-1 consume, one query head each; warpgroup HEADS
+// produces. Accumulator layout (wgmma m64nN): warp w of a warpgroup holds
+// rows 16 w + g and 16 w + g + 8 (lane = 4 g + t); element 4 j + e is column
+// 8 j + 2 t + (e & 1) of row 16 w + g + 8 (e >> 1).
+template <int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+                int H, int KV, int hd, int causal, int window, float scale_log2) {
+  constexpr int TILE = tile_bytes<HDP>();
+  constexpr int NC = HDP / ATOM;                     // 64-column chunks of hd
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const unsigned base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const unsigned bars = base + (HEADS + 2 * STAGES) * TILE;
+  // barriers: Q full; K full and V full of each stage; each stage empty
+  const unsigned q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+  auto q_tile = [&](int w) { return base + w * TILE; };
+  auto k_tile = [&](int s) { return base + (HEADS + s) * TILE; };
+  auto v_tile = [&](int s) { return base + (HEADS + STAGES + s) * TILE; };
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mat = lane / 8, mrow = lane % 8;  // ldmatrix: which 8x8 matrix, which of its rows
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
+  // blocks in order of their q tile, the heaviest causal tiles first
+  const int G = H / KV, sets = (G + HEADS - 1) / HEADS;
+  const int nq = (S + BQ - 1) / BQ, per_tile = gridDim.x / nq;
+  const int qt = nq - 1 - blockIdx.x / per_tile;
+  int rest = blockIdx.x % per_tile;
+  const int set = rest % sets;
+  rest /= sets;
+  const int kvh = rest % KV, b = rest / KV;
+  const int h0 = kvh * G + set * HEADS;           // first query head of the block
+  const int active = min(HEADS, G - set * HEADS);  // warpgroups with a head
   const int q0 = qt * BQ;
-
-  const long q_row = (long)H * HD;  // elements between consecutive positions
-  const long kv_row = (long)KV * HD;
-  const __nv_bfloat16* qb = q + ((long)b * S * H + h) * HD;
-  const __nv_bfloat16* kb = k + ((long)b * S * KV + kvh) * HD;
-  const __nv_bfloat16* vb = v + ((long)b * S * KV + kvh) * HD;
-  __nv_bfloat16* ob = o + ((long)b * S * H + h) * HD;
-
   int kt_begin, kt_end;
   key_tiles(q0, S, causal, window, kt_begin, kt_end);
+  const int n = kt_end - kt_begin;
 
-  load_rows<HD>(sQ, qb, q_row, q0, BQ, S);
-  load_rows<HD>(sK, kb, kv_row, kt_begin * BK, BK, S);
-  load_rows<HD>(sV, vb, kv_row, kt_begin * BK, BK, S);
-  cp_async_commit();
-
-  unsigned qf[KSTEPS][4];
-  float acc[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g and g + 8
-  const int row0 = q0 + warp * 16 + g;
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int stage = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end) {  // the next tile loads while this one is computed
-      load_rows<HD>(sK + (stage ^ 1) * BK * LD, kb, kv_row, (kt + 1) * BK, BK, S);
-      load_rows<HD>(sV + (stage ^ 1) * BK * LD, vb, kv_row, (kt + 1) * BK, BK, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 128 * active);
     }
-    __syncthreads();
-    if (kt == kt_begin) {
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        ldsm_x4(qf[ks], sQ + (warp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8);
-    }
-    const __nv_bfloat16* cK = sK + stage * BK * LD;
-    const __nv_bfloat16* cV = sV + stage * BK * LD;
-
-    // S = Q K^T: this warp's 16 rows against the tile's 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {  // two key tiles per ldmatrix.x4
-        unsigned kf[4];
-        ldsm_x4(kf, cK + (jp * 16 + mrow + (mat / 2) * 8) * LD + ks * 16 + (mat % 2) * 8);
-        mma(s[2 * jp], qf[ks], kf[0], kf[1]);
-        mma(s[2 * jp + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
-    // online softmax in the log2 domain: scores and m carry a factor log2e, so
-    // exp2 of their differences is exp of the true ones
-    const int k0 = kt * BK;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qp = row0 + (e / 2) * 8, kp = k0 + j * 8 + 2 * t + (e % 2);
-        s[j][e] = keep(qp, kp, S, causal, window) ? s[j][e] * scale_log2 : NEG_INF;
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m[e / 2]);
-        sum[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = corr[i] * l[i] + sum[i];
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[d][e] *= corr[e / 2];
-
-    // O += P V in f32 precision: two key tiles of P form one A fragment, split
-    // into a bf16 high part and a bf16 residual, each multiplied by V (bf16,
-    // exact) on the tensor cores into the f32 accumulator
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned ph[4], pl[4];
-      split(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {  // two column tiles per ldmatrix.x4.trans
-        unsigned vf[4];
-        ldsm_x4_t(vf, cV + (kk * 16 + mrow + (mat % 2) * 8) * LD + dp * 16 + (mat / 2) * 8);
-        mma(acc[2 * dp], pl, vf[0], vf[1]);
-        mma(acc[2 * dp], ph, vf[0], vf[1]);
-        mma(acc[2 * dp + 1], pl, vf[2], vf[3]);
-        mma(acc[2 * dp + 1], ph, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles from now
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
+  if (threadIdx.x / 128 == HEADS) {
+    // producer: one thread keeps the ring full by TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x % 128 == 0) {
+      mbar_expect_tx(q_full, active * TILE);
+      for (int w = 0; w < active; ++w)
+        for (int c = 0; c < NC; ++c)
+          tma_load(q_tile(w) + c * SUBTILE, &tq, q_full, c * ATOM, h0 + w, q0, b);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty(s), (i / STAGES - 1) & 1);
+        const int k0 = (kt_begin + i) * BK;
+        mbar_expect_tx(k_full(s), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(k_tile(s) + c * SUBTILE, &tk, k_full(s), c * ATOM, kvh, k0, b);
+        mbar_expect_tx(v_full(s), TILE);
+        for (int c = 0; c < NC; ++c)
+          tma_load(v_tile(s) + c * SUBTILE, &tv, v_full(s), c * ATOM, kvh, k0, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wgi = threadIdx.x / 128;
+    if (wgi < active) {
+      const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+      const int g = lane / 4, t = lane % 4;
+      const int h = h0 + wgi;
+      const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8
+      // a tile needs the mask where some key lies past S, after a row, or
+      // outside a row's window
+      auto edge = [&](int k0) {
+        return k0 + BK > S ||
+               (causal && (k0 + BK - 1 > q0 || (window > 0 && k0 <= q0 + BQ - 1 - window)));
+      };
+      // S = Q K^T of stage s into sc, 64 x 64, K-steps of 16 along hd (32
+      // bytes of a swizzled row); issued, not waited for
+      auto issue_qk = [&](float (&sc)[32], int s) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int sp = row0 + i * 8;
-    if (sp >= S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+        for (int ks = 0; ks < HDP / 16; ++ks) {
+          const unsigned off = (ks / 4) * SUBTILE + (ks % 4) * 32;
+          wgmma_ss(sc, desc_kmajor(q_tile(wgi) + off), desc_kmajor(k_tile(s) + off), 1);
+        }
+        wgmma_commit();
+      };
+
+      float acc[NC][32];
 #pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(&ob[sp * q_row + d * 8 + 2 * t]) =
-          __floats2bfloat162_rn(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+      mbar_wait(q_full, 0);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % STAGES;
+        const unsigned parity = (i / STAGES) & 1;
+        const int k0 = (kt_begin + i) * BK;
+
+        float sc[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+        mbar_wait(k_full(s), parity);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pin(sc[e]);
+        wgmma_fence();
+        issue_qk(sc, s);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) pin(sc[e]);
+
+        float corr[2];
+        unsigned ph[4][4], pl[4][4];
+        softmax(sc, edge(k0), row0, k0, t, S, causal, window, scale_log2, m, l, corr, ph, pl);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            acc[c][e] *= corr[(e % 4) / 2];
+            pin(acc[c][e]);
+          }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pin(ph[kk][r]);
+            pin(pl[kk][r]);
+          }
+
+        // O += P V: V's rows are the K dimension (16 keys = 2048 bytes a step)
+        mbar_wait(v_full(s), parity);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const uint64_t dv = desc_mnmajor(v_tile(s) + c * SUBTILE + kk * 2048);
+            wgmma_rs(acc[c], pl[kk], dv);
+            wgmma_rs(acc[c], ph[kk], dv);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) pin(acc[c][e]);
+        mbar_arrive(empty(s));
+      }
+
+      const long q_row = (long)H * hd;  // elements between consecutive positions
+      __nv_bfloat16* ob = o + ((long)b * S * H + h) * hd;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int sp = row0 + r * 8;
+        if (sp >= S) continue;
+        const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = c * ATOM + 8 * j + 2 * t;
+            if (col < hd)
+              *reinterpret_cast<__nv_bfloat162*>(&ob[sp * q_row + col]) = __floats2bfloat162_rn(
+                  acc[c][4 * j + 2 * r] * inv, acc[c][4 * j + 2 * r + 1] * inv);
+          }
+      }
+    }
   }
 }
 
-template <int HD>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once (no link to libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a contiguous (B, S, N, hd) bf16 tensor in boxes of 64 rows by
+// 64 columns of one head, 128-byte swizzled; reads past hd or S give zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int N, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)N, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)N * hd * 2,
+                                 (cuuint64_t)S * N * hd * 2};
+  const cuuint32_t box[4] = {ATOM, 1, BK, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+int blocks(int B, int S, int H, int KV) {
+  const int G = H / KV;
+  return (S + BQ - 1) / BQ * B * KV * ((G + HEADS - 1) / HEADS);
+}
+
+template <int HDP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int KV, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes(HD);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_mma<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, KV, causal,
-      window, scale * LOG2E);
+                   int KV, int hd, int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<HDP>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, S, H, hd) || !tensor_map(&tk, k, B, S, KV, hd) ||
+      !tensor_map(&tv, v, B, S, KV, hd))
+    return cudaErrorInvalidValue;
+  flash_fwd_wgmma<HDP><<<blocks(B, S, H, KV), THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, KV, hd, causal, window,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // =============================================================== f32: SIMT FMA
 
@@ -499,14 +722,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 }  // namespace simt
 
 using LaunchFn = cudaError_t (*)(const void*, const void*, const void*, void*, int, int, int, int,
-                                 int, int, float, cudaStream_t);
+                                 int, int, int, float, cudaStream_t);
 
-// The launcher of `is_bf16`'s kernel at head size hd, or nullptr.
-LaunchFn launcher(int hd, int is_bf16) {
+// f32: the SIMT kernel at head size hd
+template <int HD>
+cudaError_t simt_launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                        int KV, int, int causal, int window, float scale, cudaStream_t stream) {
+  return simt::launch<HD>(q, k, v, o, B, S, H, KV, causal, window, scale, stream);
+}
+
+LaunchFn simt_launcher(int hd) {
   switch (hd) {
 #define REPRO_HD(N) \
   case N:           \
-    return is_bf16 ? tc::launch<N> : simt::launch<N>;
+    return simt_launch<N>;
     REPRO_HD(16)
     REPRO_HD(32)
     REPRO_HD(48)
@@ -521,24 +750,43 @@ LaunchFn launcher(int hd, int is_bf16) {
   }
 }
 
+// bf16: the wgmma kernel with hd padded to 64 or 128 columns
+LaunchFn wg_launcher(int hd) { return hd > wg::ATOM ? wg::launch<128> : wg::launch<64>; }
+
+bool valid(int B, int S, int H, int KV, int hd) {
+  return B > 0 && S > 0 && KV > 0 && H % KV == 0 && hd > 0 && hd % 16 == 0 && hd <= 128;
+}
+
 }  // namespace
 
 // q: (B, S, H, hd); k, v: (B, S, KV, hd); o: (B, S, H, hd); all contiguous,
-// of one dtype (is_bf16: bfloat16, else float32), bf16 pointers 16-byte
-// aligned. hd is a multiple of 16 up to 128 and H a multiple of KV. Launches
-// on `stream` and returns cudaGetLastError() as an int (0 on success).
+// of one dtype (is_bf16: bfloat16, else float32), pointers 16-byte aligned.
+// hd is a multiple of 16 up to 128 and H a multiple of KV. Launches on
+// `stream` and returns cudaGetLastError() as an int (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int S, int H, int KV, int hd, int causal, int window,
                                    float scale, int is_bf16, void* stream) {
-  const LaunchFn fn = launcher(hd, is_bf16);
-  if (fn == nullptr || B <= 0 || S <= 0 || KV <= 0 || H % KV != 0)
-    return (int)cudaErrorInvalidValue;
-  return (int)fn(q, k, v, o, B, S, H, KV, causal, window, scale,
+  if (!valid(B, S, H, KV, hd)) return (int)cudaErrorInvalidValue;
+  const LaunchFn fn = is_bf16 ? wg_launcher(hd) : simt_launcher(hd);
+  return (int)fn(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
                  static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory one block of the kernel for `is_bf16` takes at head
-// size hd (bytes).
-extern "C" int flash_attention_smem_bytes(int hd, int is_bf16) {
-  return (int)(is_bf16 ? tc::smem_bytes(hd) : simt::smem_bytes(hd));
+// The launch of `is_bf16`'s kernel at these shapes, into out[4]: blocks,
+// threads a block, dynamic shared memory a block (bytes), query heads a
+// block. Returns 0, or cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int flash_attention_plan(int B, int S, int H, int KV, int hd, int is_bf16, int* out) {
+  if (!valid(B, S, H, KV, hd)) return (int)cudaErrorInvalidValue;
+  if (is_bf16) {
+    out[0] = wg::blocks(B, S, H, KV);
+    out[1] = wg::THREADS;
+    out[2] = hd > wg::ATOM ? wg::smem_bytes<128>() : wg::smem_bytes<64>();
+    out[3] = wg::HEADS;
+  } else {
+    out[0] = (S + BQ - 1) / BQ * H * B;
+    out[1] = simt::THREADS;
+    out[2] = (int)simt::smem_bytes(hd);
+    out[3] = 1;
+  }
+  return 0;
 }

@@ -1,6 +1,7 @@
 """Flash attention forward: the wrapper of the CUDA kernels in
-``csrc/flash_attention.cu`` (bf16 on the tensor cores, f32 on the CUDA
-cores), which replace the TPU kernel ``repro.kernels.flash_attention``.
+``csrc/flash_attention.cu`` (bf16 by TMA and wgmma, the query heads of one KV
+head in one block; f32 on the CUDA cores), which replace the TPU kernel
+``repro.kernels.flash_attention``.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
 it runs the plain version, ``ref.ref_gqa_attention``. ``flash_attention.launches``
@@ -31,12 +32,17 @@ def _kernel():
     return fn
 
 
-def smem_bytes(hd: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory one block of ``dtype``'s kernel takes at head size hd."""
-    fn = build.load("flash_attention").flash_attention_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]     # hd, is_bf16
-    fn.restype = ctypes.c_int
-    return fn(hd, int(dtype == torch.bfloat16))
+def launch_plan(B: int, S: int, H: int, KV: int, hd: int, dtype: torch.dtype) -> dict:
+    """How ``dtype``'s kernel launches at these shapes: blocks, threads and
+    dynamic shared memory (bytes) a block, query heads a block."""
+    fn = build.load("flash_attention").flash_attention_plan
+    I = ctypes.c_int
+    fn.argtypes = [I, I, I, I, I, I, ctypes.POINTER(I)]
+    fn.restype = I
+    out = (I * 4)()
+    if fn(B, S, H, KV, hd, int(dtype == torch.bfloat16), out):
+        raise ValueError(f"flash_attention takes no launch at B={B} S={S} H={H} KV={KV} hd={hd}")
+    return dict(zip(("blocks", "threads", "smem_bytes", "heads_per_block"), out))
 
 
 def _check(q, k, v):

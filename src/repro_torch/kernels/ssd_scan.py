@@ -1,5 +1,7 @@
-"""Mamba-2 SSD chunked scan: the wrapper of the CUDA kernel in
-``csrc/ssd_scan.cu``, which replaces the TPU kernel ``repro.kernels.ssd_scan``.
+"""Mamba-2 SSD chunked scan: the wrapper of the CUDA kernels in
+``csrc/ssd_scan.cu`` (bf16 on the tensor cores, one block per slice of 32
+columns of hd; f32 on the CUDA cores), which replace the TPU kernel
+``repro.kernels.ssd_scan``.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
 it runs the plain version, ``ref.ref_ssd_chunked``. ``ssd_scan.launches``
@@ -31,12 +33,16 @@ def _kernel():
     return fn
 
 
-def smem_bytes(chunk: int, hd: int, ds: int) -> int:
-    """Dynamic shared memory one block takes at this chunk, head size and state size."""
-    fn = build.load("ssd_scan").ssd_scan_smem_bytes
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(chunk, hd, ds)
+def launch_plan(Bb: int, nh: int, hd: int, ds: int, chunk: int, dtype: torch.dtype) -> dict:
+    """How ``dtype``'s kernel launches at these shapes: blocks, threads and
+    dynamic shared memory (bytes) a block."""
+    fn = build.load("ssd_scan").ssd_scan_plan
+    I = ctypes.c_int
+    fn.argtypes = [I, I, I, I, I, I, ctypes.POINTER(I)]
+    fn.restype = I
+    out = (I * 3)()
+    fn(Bb, nh, hd, ds, chunk, int(dtype == torch.bfloat16), out)
+    return dict(zip(("blocks", "threads", "smem_bytes"), out))
 
 
 def _check(x, dt, A, B, C):

@@ -29,6 +29,13 @@ CASES = {
     "ragged_causal": (2, 100, 4, 2, 80, True, 0),
     "ragged_window": (1, 200, 4, 1, 16, True, 48),
     "ragged_noncausal": (1, 70, 2, 2, 128, False, 0),
+    # edges of the bf16 kernel: G that its two query heads a block do not
+    # divide, a sequence under one tile, hd 16 and 128 with a window
+    "heads_G5": (1, 192, 5, 1, 64, True, 0),
+    "heads_G3_S130": (2, 130, 6, 2, 48, True, 0),
+    "short_S40": (2, 40, 4, 2, 64, True, 0),
+    "window_hd16": (1, 256, 4, 2, 16, True, 48),
+    "window_hd128": (1, 320, 6, 2, 128, True, 100),
 }
 
 
@@ -75,6 +82,11 @@ SSD_CASES = {
     "sweep_S192": (2, 192, 1, 16, 1, 8, 64),
     "groups": (2, 256, 8, 32, 2, 64, 128),
     "padded": (1, 150, 3, 24, 1, 20, 50),
+    # edges of the bf16 kernel's hd slices of 32 columns, and the serve
+    # slice's heads and single group at a shorter sequence
+    "hdslice24": (2, 256, 4, 24, 2, 64, 128),
+    "hdslice48": (2, 256, 4, 48, 2, 64, 128),
+    "nh24_g1": (2, 512, 24, 64, 1, 128, 128),
 }
 
 
@@ -125,3 +137,51 @@ def test_ssd_kernel_matches_plain(case, dtype, atol, strided):
     if dt_ == torch.bfloat16:                 # against the plain version in f32
         yr32, _ = ref_ssd_chunked(x.float(), dt, A, Bh.float(), Ch.float(), chunk)
         assert _rounding_excess(y, yr32) <= 1e-4, (case, _rounding_excess(y, yr32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_model_dt(dtype):
+    """dt and A as the full-width model draws them (dt = softplus(N(0,
+    0.55^2)), A = -1), so that cum falls to about -96 within a chunk of 128,
+    past f32's exp underflow; x, B and C at unit std, strided as the model
+    hands them over. |y| reaches about 1e2, so the y tolerances (1e-4 in
+    f32, 1e-1 in bf16, and in bf16 1e-4 beyond half a bf16 step of the f32
+    plain version) are relative to max(1, max |y|), as in chip_smoke.py."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    Bb, S, nh, hd, g, ds, chunk = 2, 512, 24, 64, 1, 128, 128
+    rng = np.random.default_rng(3)
+    dt_ = getattr(torch, dtype)
+    xbc = torch.from_numpy(rng.standard_normal((Bb, S, nh * hd + 2 * g * ds)).astype(np.float32))
+    x, B, C = torch.split(xbc.to("cuda", dt_), [nh * hd, g * ds, g * ds], dim=-1)
+    x, B, C = x.reshape(Bb, S, nh, hd), B.reshape(Bb, S, g, ds), C.reshape(Bb, S, g, ds)
+    dt = torch.from_numpy(np.log1p(np.exp(0.55 * rng.standard_normal((Bb, S, nh))))
+                          .astype(np.float32)).cuda()
+    A = -torch.ones(nh, device="cuda")
+    y, h = ssd_mod.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    Bh, Ch = B.repeat_interleave(nh // g, dim=2), C.repeat_interleave(nh // g, dim=2)
+    yr, hr = ref_ssd_chunked(x, dt, A, Bh, Ch, chunk)
+    scale = max(1.0, yr.float().abs().max().item())
+    assert bool(torch.isfinite(y.float()).all())
+    err = (y.float() - yr.float()).abs().max().item()
+    assert err <= {"float32": 1e-4, "bfloat16": 1e-1}[dtype] * scale, (dtype, err, scale)
+    h_err = (h - hr).abs().max().item()
+    assert h_err <= 1e-4 * max(1.0, hr.abs().max().item()), (dtype, h_err)
+    if dt_ == torch.bfloat16:
+        yr32, _ = ref_ssd_chunked(x.float(), dt, A, Bh.float(), Ch.float(), chunk)
+        assert _rounding_excess(y, yr32) <= 1e-4 * scale, (_rounding_excess(y, yr32), scale)
+
+
+@pytest.mark.gpu
+def test_launch_plans_at_the_serve_shapes():
+    """The bf16 flash kernel serves two query heads of one KV head a block
+    (K and V loaded once for both); the bf16 SSD kernel fills the card with
+    more than one block per (head, batch) by slicing hd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = fa_mod.launch_plan(4, 512, 12, 2, 128, torch.bfloat16)
+    assert plan["heads_per_block"] == 2 and plan["blocks"] == 8 * 4 * 2 * 3
+    plan = ssd_mod.launch_plan(4, 24, 64, 128, 128, torch.bfloat16)
+    assert plan["blocks"] == 2 * 24 * 4 > 96 and plan["smem_bytes"] <= 227 * 1024 // 2

@@ -244,3 +244,91 @@ def test_ssd_scan_rejects_bad_inputs(bad):
     B = torch.zeros(1, S, g, 8, dtype=torch.bfloat16 if bad == "dtype" else torch.float32)
     with pytest.raises(ValueError):
         ssd_mod.ssd_scan(x, dt, -torch.ones(nh), B, B.clone(), chunk=64)
+
+
+def _hi_lo(a):
+    """``a`` (f32) as the kernel hands it to the tensor cores: a bf16 high
+    part and the bf16 residual, each exact in a bf16 product."""
+    hi = a.to(torch.bfloat16).float()
+    return hi, (a - hi).to(torch.bfloat16).float()
+
+
+def _split_mm(a, b, eq):
+    """einsum(eq, a, b) with ``a`` split as the kernel splits it: the two
+    products summed in f32, residual first."""
+    hi, lo = _hi_lo(a)
+    return torch.einsum(eq, lo, b) + torch.einsum(eq, hi, b)
+
+
+def _sliced_ssd(x, dt, A, B, C, chunk, width=32):
+    """Plain emulation of the bf16 SSD kernel's layout and arithmetic: hd in
+    slices of ``width`` columns run separately (each recomputes C Bᵀ and the
+    decays) and concatenated; per chunk, cum = cumsum(dt A) in f64 and kept
+    in log2 units, the decays as exp2 of f32 differences (below a row's
+    16-row block, i0 = 16 floor(i / 16), L[i][t] = 2^(cum_i - cum_i0)
+    2^(cum_i0 - cum_t)), and the three products with an f32 operand
+    (C Bᵀ ⊙ L · dt against x, C against h, x w against B) split into a bf16
+    high part and residual. x, B, C: bf16 values in f32; B and C carry one
+    group per head."""
+    log2e = 1.4426950408889634
+    Bb, S, nh, hd = x.shape
+    Q = min(chunk, S)
+    ys, hs = [], []
+    for d0 in range(0, hd, width):
+        xs = x[..., d0:d0 + width]
+        h = torch.zeros(Bb, nh, xs.shape[-1], B.shape[-1])
+        y = torch.empty_like(xs)
+        for c0 in range(0, S, Q):
+            xc, dtc = xs[:, c0:c0 + Q], dt[:, c0:c0 + Q]
+            Bc, Cc = B[:, c0:c0 + Q], C[:, c0:c0 + Q]
+            cum = torch.cumsum((dtc * A).double(), dim=1)                 # (Bb, Q, nh)
+            cum2 = (cum * log2e).float()
+            w = dtc * torch.exp2(((cum[:, -1:] - cum) * log2e).float())
+            G = torch.einsum("bins,btns->bnit", Cc, Bc)                     # exact products
+            c2 = cum2.transpose(1, 2)                                     # (Bb, nh, Q)
+            i0 = torch.arange(Q) // 16 * 16                               # each row's block
+            ci0 = c2[..., i0]
+            below = torch.exp2(c2 - ci0)[..., :, None] * torch.exp2(ci0[..., :, None]
+                                                                    - c2[..., None, :])
+            L = torch.where(torch.arange(Q)[None, :] < i0[:, None], below,
+                            torch.exp2(c2[..., :, None] - c2[..., None, :])).tril()
+            M = G * L * dtc.transpose(1, 2)[:, :, None, :]
+            y_intra = _split_mm(M, xc, "bnit,btnd->bind")
+            y_inter = _split_mm(h, Cc, "bnds,bins->bind")
+            y[:, c0:c0 + Q] = y_intra + y_inter * torch.exp2(cum2)[..., None]
+            h = (h * torch.exp2(c2[..., -1])[..., None, None]
+                 + _split_mm(xc * w[..., None], Bc, "btnd,btns->bnds"))
+        ys.append(y)
+        hs.append(h)
+    return torch.cat(ys, dim=-1), torch.cat(hs, dim=-2)
+
+
+@pytest.mark.parametrize("model_dt", [False, True])
+@pytest.mark.parametrize("S,nh,hd,ds,chunk", SSD_SWEEPS + [(256, 2, 48, 32, 128),
+                                                           (128, 2, 24, 16, 64)])
+def test_sliced_ssd_emulation_matches_jax(S, nh, hd, ds, chunk, model_dt):
+    """The algebra the bf16 SSD kernel relies on, in f32 on the CPU, against
+    ``repro.models.ssm.ssd_chunked``: y within 1e-4 (relative to max |y| with
+    the model's dt, where cum falls to about -96 within a chunk and |y|
+    reaches about 1e2), h within 1e-4 x max(1, max |h|). x, B and C are
+    bf16 values, as the kernel takes them."""
+    rng = np.random.default_rng(S + hd + int(model_dt))
+    Bb = 2
+
+    def bf16_values(*shape):
+        a = rng.standard_normal(shape).astype(np.float32)
+        return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+    x, B, C = bf16_values(Bb, S, nh, hd), bf16_values(Bb, S, nh, ds), bf16_values(Bb, S, nh, ds)
+    if model_dt:   # as the full-width model draws them: softplus(N(0, 0.55^2)), A = -1
+        dt = np.log1p(np.exp(0.55 * rng.standard_normal((Bb, S, nh)))).astype(np.float32)
+        A = -np.ones(nh, np.float32)
+    else:
+        dt = rng.uniform(0.01, 0.2, (Bb, S, nh)).astype(np.float32)
+        A = -rng.uniform(0.5, 2.0, nh).astype(np.float32)
+    yj, hj = jax_ssd_chunked(*(jnp.asarray(a) for a in (x, dt, A, B, C)), chunk)
+    y, h = _sliced_ssd(*(torch.from_numpy(a) for a in (x, dt, A, B, C)), chunk)
+    yj, hj = np.asarray(yj), np.asarray(hj)
+    y_tol = 1e-4 * (max(1.0, np.abs(yj).max()) if model_dt else 1.0)
+    np.testing.assert_allclose(y.numpy(), yj, atol=y_tol, rtol=0)
+    np.testing.assert_allclose(h.numpy(), hj, atol=1e-4 * max(1.0, np.abs(hj).max()), rtol=0)
