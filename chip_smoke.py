@@ -30,7 +30,20 @@ Phases, each printed on lines of its own and each fatal when it fails:
            against the plain chunked attention on the card; mamba2-130m
            prefill through the SSD kernel on the card against the plain
            chunked scan on the CPU, from a copy of the same weights.
-7. kernels one JSON line with every kernel's launches, error and times.
+7. train   the training path, with every kernel count at 0 just before it:
+           full-width qwen2-1.5b (batch 8 x 512) and mamba2-130m (batch
+           8 x 1024), all layers, bf16, 6 steps of ``make_train_step`` (loss
+           in chunks of 128, full activation checkpointing, f32 AdamW
+           moments) on ``SyntheticDataset``. Gates: every parameter has a
+           finite, non-zero gradient and moves in the first step (or, where
+           bf16 rounds AdamW's update away, its moments show the gradient
+           arrived); the first loss is within 0.5 of ln(V) and the last is
+           below it. Prints train_step_ms, tokens/s, mfu, peak memory and a
+           torch.profiler split of one step. Then one f32 step of each model
+           at full width and 2 layers, card against CPU: loss, gradients,
+           and AdamW on the same gradients. The path runs no hand kernel:
+           ``repro`` trains through its plain routes, as the port does.
+8. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -72,6 +85,16 @@ SSD_H_RTOL = 1e-4
 # bf16: the kernel computes in f32 and rounds y once, so beyond half a bf16
 # step it may differ from the f32 plain version only as the f32 case does
 SSD_ROUNDING_EXCESS_TOL = 1e-4
+
+# train phase: (batch, seq) a model, steps, loss chunk, and the launcher's
+# learning rate. (At 2e-3 and 3e-3 qwen2-1.5b's loss rose to 15.3 and 15.8
+# within the 6 steps, from 12.3.)
+TRAIN_SHAPE = {"qwen2-1.5b": (8, 512), "mamba2-130m": (8, 1024)}
+TRAIN_STEPS, TRAIN_LOSS_CHUNK, TRAIN_LR = 6, 128, 1e-3
+TRAIN_LOSS_WINDOW = 0.5                  # first loss within this of ln(V)
+# f32 train step, card against CPU, full width at 2 layers
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, TRAIN_PARITY_CHUNK = 2, 2, 128, 64
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-3, 1e-5
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
 SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
@@ -671,8 +694,8 @@ def parity_flash(seed: int):
 
 
 def parity_ssd(seed: int):
-    """The kernel route on the card against the plain route, which runs only
-    on the CPU, from a copy of the same weights."""
+    """The kernel route on the card against the model's own scan
+    (``attn_impl="jnp"``) on the CPU, from a copy of the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, prefill_step
     dev = torch.device("cuda")
@@ -681,10 +704,11 @@ def parity_ssd(seed: int):
     tokens = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, (PARITY_BATCH, PARITY_PROMPT)))
     before = read_counts()["ssd_scan"]
-    kern = prefill_step(cfg, params, {"tokens": tokens.to(dev)}).float().cpu()
+    kern = prefill_step(cfg.replace(attn_impl="pallas"), params,
+                        {"tokens": tokens.to(dev)}).float().cpu()
     launched = read_counts()["ssd_scan"] - before
     t0 = time.perf_counter()
-    plain = prefill_step(cfg, _to_cpu(params), {"tokens": tokens}).float()
+    plain = prefill_step(cfg, _to(params, "cpu"), {"tokens": tokens}).float()
     cpu_s = time.perf_counter() - t0
     diff = (kern - plain).abs().max().item()
     n_layers = cfg.pattern.count("M") * cfg.num_periods
@@ -700,10 +724,255 @@ def parity_ssd(seed: int):
     torch.cuda.empty_cache()
 
 
-def _to_cpu(tree):
+def _named_leaves(tree, prefix=""):
+    """(name, leaf) pairs in ``optim.adam.leaves`` order."""
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
-    return tree.cpu()
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def train_flops_per_token(cfg, n_params: int, seq: int) -> float:
+    """Model FLOPs of one trained token: 6 N (a forward and a backward pass
+    over every weight in a matmul: N is the parameter count less the input
+    embedding table when the head is untied, since a lookup is no matmul; a
+    tied table is the head's matmul and counts once) plus 6 H hd S for each
+    attention layer (Q Kᵀ and P V over the causal half of S keys, forward
+    and backward). Recomputation under checkpointing is not counted, nor is
+    the SSD scan's own arithmetic."""
+    n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    n_attn = cfg.pattern.count("A") * cfg.num_periods
+    return 6.0 * n + 6.0 * n_attn * cfg.num_heads * cfg.resolved_head_dim * seq
+
+
+def _annotation_ms(prof, name: str) -> float:
+    """Device time of the kernels launched inside ``record_function(name)``."""
+    return sum(e.device_time_total for e in prof.events()
+               if e.name == name and e.device_type.name == "CPU") / 1e3
+
+
+def profile_train_step(run, wall_ms: float) -> str:
+    """torch.profiler over one train step: kernel time by group. GEMM by
+    kernel name; attention is its softmax (forward and backward; its two
+    batched products count as GEMM); optimizer is every kernel launched
+    inside the step's ``train/clip`` and ``train/optimizer`` ranges; the
+    rest is elementwise and other. Idle = the step's wall time without the
+    profiler less the kernel time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type.name == "CUDA" and not e.name.startswith("train/")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    gemm = sum(e.time_range.elapsed_us() for e in kernels
+               if _kernel_group(e.name) == "gemm") / 1e3
+    softmax = sum(e.time_range.elapsed_us() for e in kernels if "softmax" in e.name.lower()) / 1e3
+    opt_ms = _annotation_ms(prof, "train/optimizer") + _annotation_ms(prof, "train/clip")
+    other = busy - gemm - softmax - opt_ms
+    idle = max(wall_ms - busy, 0.0)
+    parts = [("GEMM", gemm), ("attention softmax", softmax), ("optimizer and clip", opt_ms),
+             ("elementwise and other", other)]
+    return (f"wall {wall_ms:.3f} ms without the profiler; kernel time {busy:.3f} ms in "
+            f"{len(kernels)} launches, busy {busy / wall_ms:.1%}; " + ", ".join(
+                f"{n} {ms:.3f} ms ({ms / wall_ms:.1%})" for n, ms in parts) +
+            f", idle {idle:.3f} ms ({idle / wall_ms:.1%})")
+
+
+def _update_rounds_away(opt, p, mu, nu) -> bool:
+    """Whether a parameter ``p`` that the first AdamW step left unchanged got
+    a gradient all the same: its first moment is non-zero, and the f32 value
+    AdamW computed from its moments rounds back to ``p`` in every element.
+    (In bf16 an update under half a step is lost: a gain at 1.0 moves only
+    by more than 2^-9, which lr 1e-3 never reaches.)"""
+    c1, c2 = 1.0 - opt.b1, 1.0 - opt.b2          # bias corrections at step 1
+    delta = (mu.float() / c1) / (torch.sqrt(nu.float() / c2) + opt.eps)
+    if p.ndim >= 2:
+        delta = delta + opt.weight_decay * p.float()
+    target = p.float() - opt.lr * delta
+    return bool(mu.abs().max() > 0) and torch.equal(target.to(p.dtype), p)
+
+
+def phase_train(arch: str, seed: int):
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.launch.steps import StepOptions, make_train_step
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import AdamW
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    B, S = TRAIN_SHAPE[arch]
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    opt = AdamW(lr=TRAIN_LR)
+    opt_state = opt.init(params)
+    options = StepOptions(loss_chunk=TRAIN_LOSS_CHUNK, remat_policy="full")
+    step_fn = make_train_step(cfg, opt, options)
+    ds = SyntheticDataset(cfg.vocab_size, S, B, seed=seed)
+    t0 = time.perf_counter()
+    batches = [ds.device_batch(i, dev) for i in range(TRAIN_STEPS + 1)]
+    named = _named_leaves(params)
+    n_params = sum(t.numel() for _, t in named)
+    log("train", f"{arch} full width: {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters "
+                 f"in {cfg.dtype}, AdamW lr {TRAIN_LR:g} with {opt.state_dtype} moments, batch "
+                 f"{B} x {S}, loss_chunk {options.loss_chunk}, remat {options.remat_policy}; "
+                 f"{TRAIN_STEPS + 1} batches made in {time.perf_counter() - t0:.1f} s")
+
+    # gate 1a: every parameter gets a finite, non-zero gradient
+    ps = [t.requires_grad_(True) for _, t in named]
+    loss0, _ = loss_fn(cfg, params, batches[0], loss_chunk=options.loss_chunk,
+                       remat_policy=options.remat_policy)
+    grads = torch.autograd.grad(loss0, ps, allow_unused=True)
+    missing = [n for (n, _), g in zip(named, grads) if g is None]
+    bad = [n for (n, _), g in zip(named, grads)
+           if g is not None and not (bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0))]
+    del grads
+    log("train", f"gradients of the first batch: {len(named) - len(missing) - len(bad)} of "
+                 f"{len(named)} leaves finite and non-zero; missing {missing}, non-finite or "
+                 f"zero {bad}")
+    if missing or bad:
+        raise RuntimeError(f"{arch}: parameters without a usable gradient: {missing + bad}")
+
+    before = [t.detach().clone() for _, t in named]
+    reset_counts()
+    losses, gnorms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, i, batches[i])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        gnorms.append(float(m["grad_norm"]))
+        if i == 0:          # gate 1b: every parameter moved in the first step
+            moments = zip(_named_leaves(opt_state["mu"]), _named_leaves(opt_state["nu"]))
+            still, rounded = [], []
+            for (n, t), b, ((_, mu), (_, nu)) in zip(named, before, moments):
+                if torch.equal(t.detach(), b):
+                    (rounded if _update_rounds_away(opt, b, mu, nu) else still).append(n)
+            del before
+            log("train", f"after the first step {len(named) - len(still) - len(rounded)} of "
+                         f"{len(named)} leaves changed; unchanged with a non-zero first moment "
+                         f"and an AdamW update under half a {cfg.dtype} step in every element "
+                         f"{rounded}; unchanged otherwise {still}")
+            if still:
+                raise RuntimeError(f"{arch}: parameters unchanged by the first step: {still}")
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    step_ms = statistics.median(times[1:])
+    tok_s = B * S / (step_ms / 1e3)
+    mfu = train_flops_per_token(cfg, n_params, S) * B * S / (step_ms / 1e3) / PEAK_FLOPS[BF16]
+    log("train", f"losses {', '.join(f'{x:.4f}' for x in losses)} (ln V = "
+                 f"{np.log(cfg.vocab_size):.4f}; the gradient check's loss of the first batch "
+                 f"{float(loss0.detach()):.4f}); grad norms "
+                 f"{', '.join(f'{x:.3f}' for x in gnorms)}")
+    log("train", f"train_step_ms {step_ms:.3f} (median of steps 2-{TRAIN_STEPS}: "
+                 f"{', '.join(f'{t:.3f}' for t in times[1:])}; first step {times[0]:.3f}); "
+                 f"tokens/s {tok_s:.1f}; mfu {mfu:.2%} (model FLOPs "
+                 f"{train_flops_per_token(cfg, n_params, S) * B * S / 1e12:.3f} TFLOP a step = "
+                 f"(6 N + 6 L_attn H hd S) x tokens, N without an untied input embedding, "
+                 f"against 989 TFLOP/s bf16 dense); "
+                 f"max_memory_allocated {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
+                 f"allocated before the phase)")
+    log("train", f"kernel launches on the train path: {counts} (none expected: no hand kernel "
+                 f"has a backward, and the path trains through the model's own routes)")
+    del loss0
+    if any(counts.values()):
+        raise RuntimeError(f"{arch}: the train path launched a forward-only kernel: {counts}")
+    ln_v = float(np.log(cfg.vocab_size))
+    if not all(np.isfinite(losses)) or abs(losses[0] - ln_v) > TRAIN_LOSS_WINDOW:
+        raise RuntimeError(f"{arch}: first loss {losses[0]:.4f} is not within "
+                           f"{TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{arch}: loss did not fall: {losses}")
+
+    i = TRAIN_STEPS
+    log("train", f"{arch} profile of one step: " + profile_train_step(
+        lambda: step_fn(params, opt_state, i, batches[i]), step_ms))
+    del params, opt_state, batches
+    torch.cuda.empty_cache()
+
+
+def train_parity(arch: str, seed: int):
+    """One f32 train step at full width and 2 layers on the card against the
+    same step on the CPU, from the same parameters and batch: the loss and
+    every gradient leaf. The updated parameters are gated on the same
+    gradients (the card's, clipped and applied by AdamW on both devices):
+    applied to each side's own gradients, AdamW's first step, lr x g / (|g|
+    + eps), turns round-off of a gradient near eps = 1e-8 into a difference
+    of up to lr, so the end-to-end comparison is reported, not gated."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.launch.steps import StepOptions, make_train_step
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import AdamW, clip_by_global_norm, from_leaves, leaves
+    cfg = get_config(arch).replace(dtype="float32", num_layers=TRAIN_PARITY_LAYERS)
+    params = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    names = [n for n, _ in _named_leaves(params)]
+    ds = SyntheticDataset(cfg.vocab_size, TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, seed=seed + 1)
+    opt = AdamW(lr=TRAIN_LR)
+    options = StepOptions(loss_chunk=TRAIN_PARITY_CHUNK)
+    step = make_train_step(cfg, opt, options)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = _to(params, dev)
+        batch = ds.device_batch(0, dev)
+        ps = [t.requires_grad_(True) for t in leaves(p)]
+        loss, _ = loss_fn(cfg, p, batch, loss_chunk=TRAIN_PARITY_CHUNK)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, ps)]
+        p, _, m = step(p, opt.init(p), 0, batch)
+        out[dev] = (float(m["loss"]), grads, [t.detach().cpu() for t in leaves(p)],
+                    time.perf_counter() - t0)
+    (lc, gc, pc, sc), (lr, gr, pr, sr) = out["cuda"], out["cpu"]
+    same = {}
+    for dev in ("cuda", "cpu"):            # AdamW on the card's gradients, on both devices
+        p = _to(params, dev)
+        g, _ = clip_by_global_norm(from_leaves(params, [t.to(dev) for t in gc]),
+                                   options.clip_norm)
+        p, _ = opt.update(p, opt.init(p), g, 0)
+        same[dev] = [t.cpu() for t in leaves(p)]
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    loss_err = abs(lc - lr) / abs(lr)
+    g_err = {n: rel(a, b) for n, a, b in zip(names, gc, gr)}
+    u_err = {n: rel(a, b) for n, a, b in zip(names, same["cuda"], same["cpu"])}
+    p_err = {n: rel(a, b) for n, a, b in zip(names, pc, pr)}
+    g_worst, u_worst, p_worst = (max(d, key=d.get) for d in (g_err, u_err, p_err))
+    k = names.index(p_worst)
+    at = ((pc[k] - pr[k]).abs().argmax().item())
+    g_at = (gc[k].flatten()[at].item(), gr[k].flatten()[at].item())
+    n_over = sum(int(((a - b).abs() > TRAIN_PARAM_TOL * max(1.0, b.abs().max().item())).sum())
+                 for a, b in zip(pc, pr))
+    ok = (loss_err <= TRAIN_LOSS_RTOL and all(bool(torch.isfinite(g).all()) for g in gc)
+          and g_err[g_worst] <= TRAIN_GRAD_TOL and u_err[u_worst] <= TRAIN_PARAM_TOL)
+    log("train", f"parity {arch} full width, {TRAIN_PARITY_LAYERS} layers, f32, TF32 off, batch "
+                 f"{TRAIN_PARITY_BATCH} x {TRAIN_PARITY_SEQ}, one step on the card ({sc:.1f} s) vs "
+                 f"the CPU ({sr:.1f} s): loss {lc:.6f} vs {lr:.6f}, relative {loss_err:.3g} (tol "
+                 f"{TRAIN_LOSS_RTOL:g}); worst gradient {g_worst} {g_err[g_worst]:.3g} x max(1, "
+                 f"max|g|) (tol {TRAIN_GRAD_TOL:g}); AdamW on the same gradients: worst updated "
+                 f"parameter {u_worst} {u_err[u_worst]:.3g} x max(1, max|p|) (tol "
+                 f"{TRAIN_PARAM_TOL:g}) {'ok' if ok else 'FAILED'}")
+    log("train", f"parity {arch}, not gated: each device's step on its own gradients, worst "
+                 f"updated parameter {p_worst} {p_err[p_worst]:.3g} x max(1, max|p|), "
+                 f"{n_over} elements beyond {TRAIN_PARAM_TOL:g}; at the worst element the "
+                 f"gradients are {g_at[0]:.3g} (card) and {g_at[1]:.3g} (CPU), against AdamW's "
+                 f"eps {opt.eps:g}")
+    if not ok:
+        raise RuntimeError(f"{arch}: the train step on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev).clone()
 
 
 def main(argv=None) -> int:
@@ -733,6 +1002,11 @@ def main(argv=None) -> int:
         phase = "parity"
         parity_flash(args.seed)
         parity_ssd(args.seed)
+        phase = "train"
+        for arch in (QWEN, MAMBA):
+            phase_train(arch, args.seed)
+        for arch in (QWEN, MAMBA):
+            train_parity(arch, args.seed)
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"

@@ -44,8 +44,10 @@ class ModelConfig:
     sliding_window: int = 0     # 0 = full causal attention
     rope_theta: float = 1e4
     attn_chunk: int = 1024      # query-chunk size of the flash-style scan
-    attn_impl: str = "jnp"      # "jnp" (shardable reference) | "pallas"
-                                # (kernels/flash_attention, interpret on CPU)
+    attn_impl: str = "jnp"      # "jnp": the model's own differentiable attention
+                                # and SSD scan (training and inference) |
+                                # "pallas": the hand kernels of both mixers
+                                # (kernels/, inference only: no backward)
     # --- modality frontend stub (audio/vlm): number of precomputed
     # frame/patch embeddings prepended to the token sequence.
     frontend: str = "none"      # none | audio | vision

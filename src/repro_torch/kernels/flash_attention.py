@@ -4,7 +4,10 @@ head in one block; f32 on the CUDA cores), which replace the TPU kernel
 ``repro.kernels.flash_attention``.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it runs the plain version, ``ref.ref_gqa_attention``. ``flash_attention.launches``
+it runs the plain version, ``ref.ref_gqa_attention``. The kernel has no
+backward, as the TPU kernel has none: on every device the wrapper refuses
+inputs that record gradients, and the model trains through its own
+attention (``attn_impl="jnp"``). ``flash_attention.launches``
 counts the kernel's launches, so a run can show that its path went through
 the kernel.
 """
@@ -57,6 +60,11 @@ def _check(q, k, v):
         raise ValueError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward, and its output would carry no gradient: "
+            "train through the model's own attention (attn_impl='jnp'), or call it "
+            "under torch.no_grad()")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -4,7 +4,10 @@ columns of hd; f32 on the CUDA cores), which replace the TPU kernel
 ``repro.kernels.ssd_scan``.
 
 On a CUDA tensor the wrapper launches the kernel or raises. On a CPU tensor
-it runs the plain version, ``ref.ref_ssd_chunked``. ``ssd_scan.launches``
+it runs the plain version, ``ref.ref_ssd_chunked``. The kernel has no
+backward, as the TPU kernel has none: on every device the wrapper refuses
+inputs that record gradients, and the model trains through its own
+``models.ssm.ssd_chunked`` (``attn_impl="jnp"``). ``ssd_scan.launches``
 counts the kernel's launches, so a run can show that its path went through
 the kernel.
 """
@@ -58,6 +61,11 @@ def _check(x, dt, A, B, C):
         raise ValueError(f"dtypes differ: x {x.dtype}, B {B.dtype}, C {C.dtype}")
     if len({t.device for t in (x, dt, A, B, C)}) != 1:
         raise ValueError("x, dt, A, B, C are on different devices")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, B, C)):
+        raise RuntimeError(
+            "ssd_scan has no backward, and its outputs would carry no gradient: "
+            "train through the model's own scan, models.ssm.ssd_chunked "
+            "(attn_impl='jnp'), or call it under torch.no_grad()")
 
 
 def _rows(t):

@@ -1,10 +1,60 @@
-"""Builders for the prefill and serve steps. One device, so no axis rules."""
+"""Builders for the train, prefill and serve steps, as ``repro.launch.steps``.
+One device, so no axis rules. The pipeline train step waits for the pipeline
+slice (ROADMAP, queue 1, item 5).
+"""
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_mod
+from repro_torch.optim.adam import AdamW, clip_by_global_norm, from_leaves, leaves
+
+
+def instrument_step(step_fn, timer):
+    """Telemetry seam for the step builders: wrap a step with a
+    ``runtime.telemetry.StepTimer``."""
+    return timer.wrap(step_fn)
+
+
+@dataclass(frozen=True)
+class StepOptions:
+    remat: bool = True
+    loss_chunk: int = 0
+    clip_norm: float = 1.0
+    remat_policy: str = "full"
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, options: StepOptions | None = None):
+    """(params, opt_state, step, batch) -> (params, opt_state, metrics): the
+    loss, its gradient by autograd, clipping by the global norm and an AdamW
+    update, which writes into ``params`` and ``opt_state``. ``metrics`` holds
+    0-dim tensors ``loss``, ``ce``, ``aux`` and ``grad_norm``.
+
+    The phases run under ``torch.profiler.record_function`` ranges
+    (``train/loss``, ``train/backward``, ``train/clip``, ``train/optimizer``),
+    so that a profile can split the step's device time by phase."""
+    options = options if options is not None else StepOptions()
+
+    def train_step(params, opt_state, step: int, batch):
+        ps = leaves(params)
+        for p in ps:
+            p.requires_grad_(True)
+        with torch.profiler.record_function("train/loss"):
+            loss, metrics = model_mod.loss_fn(
+                cfg, params, batch, remat=options.remat, loss_chunk=options.loss_chunk,
+                remat_policy=options.remat_policy)
+        with torch.profiler.record_function("train/backward"):
+            grads = from_leaves(params, torch.autograd.grad(loss, ps))
+        with torch.profiler.record_function("train/clip"):
+            grads, gnorm = clip_by_global_norm(grads, options.clip_norm)
+        with torch.profiler.record_function("train/optimizer"):
+            params, opt_state = opt.update(params, opt_state, grads, step)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return params, opt_state, dict(metrics, loss=loss.detach(), grad_norm=gnorm)
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -70,6 +70,17 @@ def index_tree(tree, i: int):
     return {k: index_tree(v, i) for k, v in tree.items()}
 
 
+def unstack_tree(tree, n: int) -> list:
+    """The ``n`` slices of every leaf's leading dim, as ``n`` trees of views.
+    One ``unbind`` a leaf: its backward stacks the slices' gradients once,
+    where ``n`` separate ``index_tree`` calls would each scatter into a
+    zero-filled copy of the whole leaf."""
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    per = {k: unstack_tree(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------- layers
 
 def rms_norm(x, gamma, eps: float):
@@ -105,3 +116,11 @@ def rotary(x, pos, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy(logits, labels):
+    """Mean next-token CE in f32. logits: (B, S, V); labels: (B, S) int."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)

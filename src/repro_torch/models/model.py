@@ -1,16 +1,19 @@
 """Top-level LM: embeddings, decoder stack (attention and Mamba-2 layers),
-tied or untied head, prefill and decode steps, for the serving path.
+tied or untied head, the training loss, prefill and decode steps.
 
 Audio and vision frontends are not ported yet (ROADMAP: frontend stubs).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import ParamDef, init_tree, rms_norm
+from repro_torch.models.layers import ParamDef, cross_entropy, init_tree, rms_norm
+
+MAX_SMOKE_AUX = 0.01  # aux-loss weight
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -47,16 +50,42 @@ def _head(cfg, params, h):
     return h @ w
 
 
-def forward(cfg: ModelConfig, params, batch):
-    """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns the final
-    hidden states (B, S, D). The JAX version also returns the MoE aux loss
-    and the frontend prefix length; the ported layers have no MoE and no
-    frontend, so neither exists here."""
+def forward(cfg: ModelConfig, params, batch, remat: bool = True,
+            remat_policy: str = "full"):
+    """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns (hidden
+    (B, S, D), aux loss, n_prefix); n_prefix is 0 until the frontends are
+    ported."""
     tokens = batch["tokens"]
     x = params["embed"][tokens] * (cfg.d_model ** 0.5)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = tf_mod.stack_fwd(cfg, params["blocks"], x, pos)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x, aux = tf_mod.stack_fwd(cfg, params["blocks"], x, pos, remat=remat,
+                              remat_policy=remat_policy)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, 0
+
+
+def loss_fn(cfg: ModelConfig, params, batch, remat: bool = True,
+            loss_chunk: int = 0, remat_policy: str = "full"):
+    """Mean next-token CE (+ MoE aux). Returns (loss, {"ce", "aux"}).
+
+    ``loss_chunk`` > 0 computes the logits in sequence chunks, each under a
+    checkpoint, so neither the forward nor the backward pass holds (B, S, V)
+    at once."""
+    h, aux, _ = forward(cfg, params, batch, remat=remat, remat_policy=remat_policy)
+    labels = batch["labels"].long()
+    S = h.shape[1]
+    if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
+        def chunk_ce(hb, lb):
+            return cross_entropy(_head(cfg, params, hb), lb)
+
+        n = S // loss_chunk
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            sl = slice(i * loss_chunk, (i + 1) * loss_chunk)
+            tot = tot + checkpoint(chunk_ce, h[:, sl], labels[:, sl], use_reentrant=False)
+        ce = tot / n
+    else:
+        ce = cross_entropy(_head(cfg, params, h), labels)
+    return ce + MAX_SMOKE_AUX * aux, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------- decoding
@@ -83,5 +112,5 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
 
 def prefill_step(cfg: ModelConfig, params, batch):
     """Inference prefill: full forward, returns last-position logits (B, 1, V)."""
-    h = forward(cfg, params, batch)
+    h, _, _ = forward(cfg, params, batch, remat=False)
     return _head(cfg, params, h[:, -1:])

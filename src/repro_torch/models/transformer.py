@@ -1,6 +1,7 @@
 """Decoder stack: repeating layer periods (cfg.pattern), one Python loop
-iteration per period. Parameters and caches keep ``repro``'s layout, with a
-leading ``num_periods`` dim on every leaf.
+iteration per period, each optionally under activation checkpointing.
+Parameters and caches keep ``repro``'s layout, with a leading
+``num_periods`` dim on every leaf.
 
 Each layer is a mixer ('A' attention or 'M' Mamba-2) and an optional dense
 SwiGLU FFN. MoE FFN layers raise NotImplementedError until their slice lands
@@ -8,12 +9,16 @@ SwiGLU FFN. MoE FFN layers raise NotImplementedError until their slice lands
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    ParamDef, index_tree, mlp_defs, mlp_fwd, rms_norm, stack_defs)
+    ParamDef, index_tree, mlp_defs, mlp_fwd, rms_norm, stack_defs, unstack_tree)
 
 
 def _check_layer(cfg, j: int):
@@ -49,21 +54,61 @@ def _ffn(cfg, lp, x):
 
 # --------------------------------------------------------------- forward
 
-def stack_fwd(cfg, stacked, x, pos):
-    """x: (B, S, D) -> (B, S, D). No activation checkpointing: prefill
-    keeps no activations for a backward pass."""
-    for i in range(cfg.num_periods):
-        pparams = index_tree(stacked, i)
-        for j, ch in enumerate(cfg.pattern):
-            _check_layer(cfg, j)
-            lp = pparams[f"layer{j}"]
-            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            if ch == "A":
-                mix, _ = attn.attention(cfg, lp["mixer"], h, pos)
-            else:
-                mix, _ = ssm_mod.mamba_fwd(cfg, lp["mixer"], h)
-            x = _ffn(cfg, lp, x + mix)
-    return x
+def _layer_fwd(cfg, lp, x, pos, j: int, ch: str):
+    _check_layer(cfg, j)
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if ch == "A":
+        mix, _ = attn.attention(cfg, lp["mixer"], h, pos)
+    else:
+        mix, _ = ssm_mod.mamba_fwd(cfg, lp["mixer"], h)
+    return _ffn(cfg, lp, x + mix)
+
+
+def period_fwd(cfg, pparams, x, pos):
+    """One period of layers. Returns (x, aux); aux, the MoE loss, is 0 until
+    MoE layers are ported."""
+    for j, ch in enumerate(cfg.pattern):
+        x = _layer_fwd(cfg, pparams[f"layer{j}"], x, pos, j, ch)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of matmuls without batch dims (the projections), as
+    JAX's ``dots_with_no_batch_dims_saveable``; recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _MATMULS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {
+    "full": None,          # save only each period's input, recompute the rest
+    "dots": _save_dots,    # also save the projections' outputs
+    "none": "everything",  # save everything: no checkpoint
+}
+
+
+def stack_fwd(cfg, stacked, x, pos, remat: bool = True, remat_policy: str = "full"):
+    """x: (B, S, D) -> (x, total aux). ``stacked``: period params with a
+    leading num_periods dim. With ``remat``, each period runs under
+    ``torch.utils.checkpoint`` and ``remat_policy`` picks what it saves for
+    the backward pass (a recompute-against-memory trade)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; known: {sorted(REMAT_POLICIES)}")
+    policy = REMAT_POLICIES[remat_policy]
+    fn = period_fwd
+    if remat and policy != "everything":
+        kw = {} if policy is None else {
+            "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
+
+        def fn(cfg, pparams, x, pos):
+            return checkpoint(period_fwd, cfg, pparams, x, pos, use_reentrant=False, **kw)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pparams in unstack_tree(stacked, cfg.num_periods):
+        x, a = fn(cfg, pparams, x, pos)
+        aux = aux + a
+    return x, aux
 
 
 # --------------------------------------------------------------- decode

@@ -185,3 +185,87 @@ def test_launch_plans_at_the_serve_shapes():
     assert plan["heads_per_block"] == 2 and plan["blocks"] == 8 * 4 * 2 * 3
     plan = ssd_mod.launch_plan(4, 24, 64, 128, 128, torch.bfloat16)
     assert plan["blocks"] == 2 * 24 * 4 > 96 and plan["smem_bytes"] <= 227 * 1024 // 2
+
+
+@pytest.mark.gpu
+def test_kernel_routes_refuse_autograd_on_cuda():
+    """On CUDA tensors that record gradients both wrappers raise, before any
+    launch, where they once returned outputs with no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    before = fa_mod.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_mod.flash_attention(q, q.detach(), q.detach())
+    x = torch.randn(1, 128, 2, 32, device="cuda", requires_grad=True)
+    dt = torch.full((1, 128, 2), 0.1, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    B = torch.randn(1, 128, 1, 16, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_mod.ssd_scan(x, dt, A, B, B, chunk=64)
+    assert fa_mod.flash_attention.launches == before
+    with torch.no_grad():
+        fa_mod.flash_attention(q, q, q)
+    assert fa_mod.flash_attention.launches == before + 1
+
+
+def _tree_map(fn, tree):
+    return {k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k in sorted(tree) for k2, v2 in _flat(tree[k], f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+def test_train_step_on_card_matches_cpu(arch):
+    """One f32 train step of the reduced model on the card against the same
+    step on the CPU, from the same parameters and batch, TF32 off (the check
+    of chip_smoke.py's train phase, at reduced size): loss 1e-4 relative,
+    each gradient leaf 1e-3 x max(1, max |g|); the parameters that clipping
+    and AdamW make of the same gradients (the card's) 1e-5 x max(1, max |p|).
+    On each side's own gradients AdamW's first step, lr x g / (|g| + eps),
+    would turn round-off of a gradient near eps into a difference of up to
+    lr."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.launch.steps import StepOptions, make_train_step
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import AdamW, clip_by_global_norm, from_leaves, leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).replace(dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ds = SyntheticDataset(cfg.vocab_size, 64, 2, seed=1)
+    opt = AdamW(lr=1e-3)
+    step = make_train_step(cfg, opt, StepOptions(loss_chunk=32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = _tree_map(lambda t: t.detach().to(dev).clone(), params)
+        batch = ds.device_batch(0, dev)
+        ps = leaves(p)
+        for t in ps:
+            t.requires_grad_(True)
+        loss, _ = loss_fn(cfg, p, batch, loss_chunk=32)
+        grads = [g.cpu() for g in torch.autograd.grad(loss, ps)]
+        _, _, m = step(p, opt.init(p), 0, batch)
+        out[dev] = (float(m["loss"]), grads)
+    (lc, gc), (lr, gr) = out["cuda"], out["cpu"]
+    assert abs(lc - lr) <= 1e-4 * abs(lr)
+    for a, b in zip(gc, gr):
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+    updated = {}
+    for dev in ("cuda", "cpu"):
+        p = _tree_map(lambda t: t.detach().to(dev).clone(), params)
+        g, _ = clip_by_global_norm(from_leaves(params, [g.to(dev) for g in gc]), 1.0)
+        p, _ = opt.update(p, opt.init(p), g, 0)
+        updated[dev] = {k: v.cpu() for k, v in _flat(p).items()}
+    for k, b in updated["cpu"].items():
+        a = updated["cuda"][k]
+        assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item()), k
+

@@ -332,3 +332,53 @@ def test_sliced_ssd_emulation_matches_jax(S, nh, hd, ds, chunk, model_dt):
     y_tol = 1e-4 * (max(1.0, np.abs(yj).max()) if model_dt else 1.0)
     np.testing.assert_allclose(y.numpy(), yj, atol=y_tol, rtol=0)
     np.testing.assert_allclose(h.numpy(), hj, atol=1e-4 * max(1.0, np.abs(hj).max()), rtol=0)
+
+
+# ------------------------------------------------ no backward: autograd refused
+
+def _model_attention_inputs(impl):
+    """Reduced qwen2 attention weights that record gradients, and an input."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.layers import init_tree
+    cfg = get_reduced("qwen2-1.5b").replace(dtype="float32", attn_impl=impl)
+    p = init_tree(tattn.attn_defs(cfg), torch.Generator().manual_seed(0), torch.float32)
+    for t in p.values():
+        t.requires_grad_(True)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 64, cfg.d_model))
+                         .astype(np.float32))
+    return cfg, p, x, tattn
+
+
+@pytest.mark.parametrize("route", ["flash_attention", "attention_pallas", "mamba_ssd"])
+def test_kernel_routes_refuse_autograd(route):
+    """The kernels have no backward (nor have the TPU kernels): a kernel route
+    given inputs that record gradients raises, on the CPU as on the card,
+    where its output would otherwise carry no gradient. Before this was
+    enforced the CPU route ran the differentiable plain version, and the same
+    call on the card silently dropped the gradients of q, k, v (and of
+    everything before the SSD scan)."""
+    rng = np.random.default_rng(4)
+    if route == "flash_attention":
+        q = torch.from_numpy(rng.standard_normal((1, 64, 2, 32)).astype(np.float32))
+        k = q.clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="attn_impl='jnp'"):
+            gqa_flash_attention(q, k, q.clone())
+        with torch.no_grad():                 # inference is unaffected
+            gqa_flash_attention(q, k, q.clone())
+    elif route == "attention_pallas":
+        cfg, p, x, tattn = _model_attention_inputs("pallas")
+        pos = torch.arange(x.shape[1])
+        with pytest.raises(RuntimeError, match="no backward"):
+            tattn.attention(cfg, p, x, pos)
+        out, _ = tattn.attention(cfg.replace(attn_impl="jnp"), p, x, pos)
+        out.sum().backward()                  # the model's own attention trains
+        assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in p.values())
+    else:
+        (_, xt), (_, dt_), (_, at), (_, bt), (_, ct) = _ssd_inputs(rng, 64, 2, 16, 8, "float32")
+        dt_.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="models.ssm.ssd_chunked"):
+            mamba_ssd(xt, dt_, at, bt, ct, chunk=32)
+        with torch.inference_mode():
+            y, _ = mamba_ssd(xt, dt_, at, bt, ct, chunk=32)
+        assert y.shape == xt.shape

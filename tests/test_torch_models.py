@@ -192,7 +192,7 @@ def test_forward_and_prefill_match(impl):
     jp, tp = _weights(jcfg)
     tokens = _tokens(jcfg, 2, 128)
     h_ref, _, _ = jmodels.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)}, remat=False)
-    h = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens)})
+    h, _, _ = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens)}, remat=False)
     np.testing.assert_allclose(_np(h), _np(h_ref), atol=F32_MODEL_ATOL)
     lg_ref = jmodels.prefill_step(jcfg, jp, {"tokens": jnp.asarray(tokens)})
     lg = tmodel.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(tokens)})

@@ -122,6 +122,9 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    assert {"optim/adam.py", "launch/steps.py", "launch/train.py", "data/synthetic.py",
+            "checkpoint/ckpt.py", "runtime/telemetry.py", "models/ssm.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

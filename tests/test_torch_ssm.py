@@ -134,7 +134,7 @@ def test_forward_and_prefill_match():
     jp, tp = _weights(jcfg)
     tokens = _tokens(jcfg, 2, 256)
     h_ref, _, _ = jmodels.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)}, remat=False)
-    h = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens)})
+    h, _, _ = tmodel.forward(tcfg, tp, {"tokens": torch.from_numpy(tokens)}, remat=False)
     np.testing.assert_allclose(_np(h), _np(h_ref), atol=F32_MODEL_ATOL)
     lg_ref = jmodels.prefill_step(jcfg, jp, {"tokens": jnp.asarray(tokens)})
     lg = tmodel.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(tokens)})
@@ -150,6 +150,59 @@ def test_bf16_prefill_matches():
     lg = tmodel.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(tokens)})
     assert lg.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(lg), _np(lg_ref), atol=BF16_ATOL)
+
+
+def test_mamba_fwd_routes_by_attn_impl(monkeypatch):
+    """The model's own ``ssd_chunked`` unless the caller asks for the kernel
+    route (``attn_impl="pallas"``), as ``repro``'s ``mamba_fwd`` never calls
+    the kernel; both routes give the same output."""
+    jcfg, tcfg = _cfgs()
+    _, tp = _weights(jcfg)
+    p = _layer0(tp)["mixer"]
+    u = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 64, 128))
+                         .astype(np.float32))
+    calls = []
+    real = tssm.mamba_ssd
+    monkeypatch.setattr(tssm, "mamba_ssd", lambda *a, **k: calls.append(1) or real(*a, **k))
+    plain, _ = tssm.mamba_fwd(tcfg, p, u)
+    assert not calls
+    kern, _ = tssm.mamba_fwd(tcfg.replace(attn_impl="pallas"), p, u)
+    assert calls == [1]
+    np.testing.assert_allclose(_np(kern), _np(plain), atol=F32_LAYER_ATOL)
+    with pytest.raises(ValueError, match="attn_impl"):
+        tssm.mamba_fwd(tcfg.replace(attn_impl="xla"), p, u)
+
+
+def test_ssd_chunked_grads_stay_finite_past_exp_overflow():
+    """At the full-width model's step sizes (dt = softplus(N(0, 0.55^2)),
+    A = -1) a chunk of 128 decays by about 95, past f32's exp overflow at 88.
+    ``repro``'s ``ssd_chunked`` masks its decay matrix after ``exp``, so its
+    gradient is NaN there; the port's masks before ``exp``. Its gradients are
+    held to autograd of the naive recurrence ``ref_ssd``, whose decays are
+    all at most 1, within 1e-4 x max(1, max |g|)."""
+    from repro_torch.kernels.ref import ref_ssd
+    rng = np.random.default_rng(5)
+    Bb, S, nh, hd, ds = 1, 128, 2, 8, 4
+    x = rng.standard_normal((Bb, S, nh, hd)).astype(np.float32)
+    dt = np.log1p(np.exp(0.55 * rng.standard_normal((Bb, S, nh)))).astype(np.float32)
+    A = -np.ones(nh, np.float32)
+    B, C = (rng.standard_normal((Bb, S, nh, ds)).astype(np.float32) for _ in range(2))
+    assert float((dt[0, :, 0] * A[0]).sum()) < -88
+
+    def grads(fn):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        dtt = torch.from_numpy(dt).requires_grad_(True)
+        y, h = fn(xt, dtt, torch.from_numpy(A), torch.from_numpy(B), torch.from_numpy(C))
+        return torch.autograd.grad(y.sum() + h.sum(), (xt, dtt))
+
+    got = grads(lambda *a: tssm.ssd_chunked(*a, 128))
+    ref = grads(ref_ssd)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(_np(g), _np(r), atol=1e-4 * max(1.0, float(r.abs().max())))
+    jax_dt = jax.grad(lambda d: jssm.ssd_chunked(jnp.asarray(x), d, jnp.asarray(A), jnp.asarray(B),
+                                                 jnp.asarray(C), 128)[0].sum())(jnp.asarray(dt))
+    assert not bool(jnp.isfinite(jax_dt).all())
 
 
 def test_prefill_on_cpu_launches_no_kernel():
@@ -185,7 +238,7 @@ def test_decode_matches_full_forward():
     _, tp = _weights(_cfgs()[0])
     B, S = 2, 8
     tokens = torch.from_numpy(_tokens(tcfg, B, S, seed=8))
-    h = tmodel.forward(tcfg, tp, {"tokens": tokens})
+    h, _, _ = tmodel.forward(tcfg, tp, {"tokens": tokens}, remat=False)
     full = tmodel._head(tcfg, tp, h)
     cache = tmodel.init_cache(tcfg, B, S + 1, "cpu")
     steps = []
