@@ -43,7 +43,14 @@ Phases, each printed on lines of its own and each fatal when it fails:
            at full width and 2 layers, card against CPU: loss, gradients,
            and AdamW on the same gradients. The path runs no hand kernel:
            ``repro`` trains through its plain routes, as the port does.
-8. kernels one JSON line with every kernel's launches, error and times.
+8. plan    the TAG planner: full-width qwen2-1.5b (8 x 512) and mamba2-130m
+           (8 x 1024) training graphs traced on meta tensors (parameter
+           bytes exact, matmul FLOPs within 2 % of the analytic count); bf16
+           GEMMs timed with CUDA events and the utilization fitted against
+           the H100 row of the cost model; then ``train --tag-search`` as a
+           user runs it: a plan over ``h100_nodes()`` and 3 steps of
+           full-width qwen2-1.5b, every kernel count at 0 just before it.
+9. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -95,6 +102,12 @@ TRAIN_LOSS_WINDOW = 0.5                  # first loss within this of ln(V)
 # f32 train step, card against CPU, full width at 2 layers
 TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, TRAIN_PARITY_CHUNK = 2, 2, 128, 64
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_PARAM_TOL = 1e-4, 1e-3, 1e-5
+# plan phase: traced matmul FLOPs against the analytic count; bf16 GEMMs of
+# (batch, GEMM_DIM) x (GEMM_DIM, GEMM_DIM) for the utilization fit
+TRACE_FLOPS_RTOL = 0.02
+GEMM_BATCHES, GEMM_DIM = (1024, 2048, 4096, 8192, 16384), 4096
+TAG_SEARCH_ARGV = ["--arch", "qwen2-1.5b", "--tag-search", "--steps", "3", "--batch", "8",
+                   "--seq", "512", "--loss-chunk", "128"]
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
 SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
@@ -969,6 +982,148 @@ def train_parity(arch: str, seed: int):
     torch.cuda.empty_cache()
 
 
+def _meta_params(defs, dtype):
+    """Parameters of a ParamDef tree as meta tensors: shapes, no memory."""
+    if isinstance(defs, dict):
+        return {k: _meta_params(v, dtype) for k, v in defs.items()}
+    return torch.empty(defs.shape, dtype=dtype, device="meta")
+
+
+def plain_route_matmul_flops(cfg, n_params: int, B: int, S: int) -> float:
+    """What the model's plain routes multiply in one training step without
+    recomputation: the model FLOPs of ``train_flops_per_token`` plus what the
+    plain routes compute beyond them. Attention scores the full S x S square
+    and masks it, another 6 H hd S a token a layer. The SSD scan runs four
+    products a chunk (C Bᵀ and its product with x·dt over full Q x Q tiles,
+    C hᵀ, the state update), forward and twice in the backward pass, less
+    the three state products autograd skips: the gradient into the zero
+    initial state and the last chunk's state update, which nothing reads."""
+    total = train_flops_per_token(cfg, n_params, S) * B * S
+    n_attn = cfg.pattern.count("A") * cfg.num_periods
+    total += 6.0 * n_attn * cfg.num_heads * cfg.resolved_head_dim * S * B * S
+    n_ssm = cfg.pattern.count("M") * cfg.num_periods
+    if n_ssm:
+        Q, nh, hd, ds = min(cfg.ssm_chunk, S), cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+        unit = 2.0 * B * Q * nh * hd * ds
+        fwd = (S // Q) * (2.0 * B * nh * Q * Q * (ds + hd) + 2 * unit)
+        total += n_ssm * (3 * fwd - 3 * unit)
+    return total
+
+
+def plan_trace(arch: str, smi: str):
+    """Full-width training graph traced on meta tensors; gates on parameter
+    bytes and matmul FLOPs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.torch_export import trace_training_graph
+    from repro_torch.models.model import loss_fn, model_defs, torch_dtype
+    cfg = dataclasses.replace(get_config(arch), attn_impl="jnp")
+    B, S = TRAIN_SHAPE[arch]
+    params = _meta_params(model_defs(cfg), torch_dtype(cfg))
+    batch = {k: torch.empty((B, S), dtype=torch.int64, device="meta") for k in ("labels", "tokens")}
+    leaves = [t for _, t in _named_leaves(params)]
+    n_params = sum(t.numel() for t in leaves)
+    want_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    t0 = time.perf_counter()
+    g = trace_training_graph(lambda p, b: loss_fn(cfg, p, b, remat=False)[0], params, batch, arch)
+    trace_s = time.perf_counter() - t0
+    got_bytes = sum(n.param_bytes for n in g.nodes.values())
+    mm = sum(n.flops for n in g.nodes.values() if n.op_type in ("mm", "bmm", "addmm", "baddbmm"))
+    want_mm = plain_route_matmul_flops(cfg, n_params, B, S)
+    model_flops = train_flops_per_token(cfg, n_params, S) * B * S
+    splits = {}
+    for n in g.nodes.values():
+        splits[n.split.name] = splits.get(n.split.name, 0.0) + n.flops / g.total_flops()
+    log("plan", f"{arch} full width, batch {B} x {S}, {cfg.dtype}: traced {len(g.nodes)} aten "
+                f"ops in {trace_s:.2f} s; "
+                f"parameter bytes {got_bytes:.0f} (model {want_bytes}); matmul FLOPs "
+                f"{mm / 1e12:.4f} T against {want_mm / 1e12:.4f} T analytic (ratio "
+                f"{mm / want_mm:.5f}; {mm / model_flops:.5f} of the model FLOPs alone); total "
+                f"{g.total_flops() / 1e12:.4f} T; FLOP share by split "
+                + ", ".join(f"{k} {v:.4f}" for k, v in sorted(splits.items())) + f"; {smi}")
+    if got_bytes != want_bytes:
+        raise RuntimeError(f"{arch}: traced parameter bytes {got_bytes} != {want_bytes}")
+    if abs(mm / want_mm - 1) > TRACE_FLOPS_RTOL:
+        raise RuntimeError(f"{arch}: traced matmul FLOPs {mm:.4g} are not within "
+                           f"{TRACE_FLOPS_RTOL:.0%} of the analytic {want_mm:.4g}")
+
+
+def plan_gemm_profile(smi: str):
+    """The profiler's bf16 GEMM line on the card, and the utilization it
+    implies against the cost model's H100 peak (printed, not applied)."""
+    from repro_torch.core.device import GPU_PEAKS
+    from repro_torch.core.profiler import fit_utilization, profile_matmul_batches
+    peak = GPU_PEAKS["H100"]["peak_flops"]
+    t0 = time.perf_counter()
+    line = profile_matmul_batches(GEMM_BATCHES, dim=GEMM_DIM, device=torch.device("cuda"))
+    flops = [2.0 * b * GEMM_DIM * GEMM_DIM for b in GEMM_BATCHES]
+    util = fit_utilization(flops, [line(b) for b in GEMM_BATCHES], peak)
+    log("plan", f"bf16 GEMM ({'/'.join(map(str, GEMM_BATCHES))} x {GEMM_DIM}) x ({GEMM_DIM} x "
+                f"{GEMM_DIM}), CUDA events, median of 5 after a warm-up: t = {line.a * 1e3:.5f} ms "
+                f"+ {line.b * 1e9:.4f} ns x batch; at {GEMM_BATCHES[-1]} rows "
+                f"{flops[-1] / line(GEMM_BATCHES[-1]) / 1e12:.1f} TFLOP/s; fitted utilization "
+                f"{util} of {peak / 1e12:.0f} TFLOP/s (cost-model prior "
+                f"{GPU_PEAKS['H100']['util']}, unchanged); {time.perf_counter() - t0:.1f} s; {smi}")
+    if util is None or not 0 < util <= 1:
+        raise RuntimeError(f"GEMM utilization fit gave {util}")
+
+
+def plan_tag_search(smi: str):
+    """``python -m repro_torch.launch.train`` with ``--tag-search`` on the
+    card; the plan it made is kept by wrapping ``plan_deployment``."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    kept = {}
+    plan_deployment = train_mod.plan_deployment
+
+    def keep(*a, **kw):
+        t0 = time.perf_counter()
+        kept["result"], kept["plan"] = out = plan_deployment(*a, **kw)
+        kept["s"] = time.perf_counter() - t0
+        return out
+
+    out = io.StringIO()
+    train_mod.plan_deployment = keep
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            losses = train_mod.main(TAG_SEARCH_ARGV)
+    finally:
+        train_mod.plan_deployment = plan_deployment
+        print(out.getvalue(), end="", flush=True)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    result, plan = kept["result"], kept["plan"]
+    strat, gg = result.strategy, result.gg
+    dups = sum(len(p.dup_op_types) for p in result.sfb_plans.values())
+    saved = sum(p.saved_sync_bytes for p in result.sfb_plans.values())
+    log("plan", f"--tag-search: trace and search {kept['s']:.2f} s of {wall:.1f} s; "
+                f"{len(gg.base.nodes)} ops in {gg.n} groups; option mix "
+                f"{plan.summary['options']}; {plan.summary['n_stages']} pipeline stages; SFB "
+                f"duplications: {dups} ops in {len(result.sfb_plans)} groups, "
+                f"{saved / 1e6:.3f} MB of gradient sync saved; simulated {result.time:.6g} s "
+                f"against DP-AllReduce {result.baseline_time:.6g} s, speedup "
+                f"{result.speedup:.4f}; kernel launches {counts}; {smi}")
+    if len(strat.actions) != gg.n or not strat.complete():
+        raise RuntimeError(f"the strategy covers {strat.n_decided} of {gg.n} groups")
+    if not (np.isfinite(result.time) and result.time > 0
+            and np.isfinite(result.speedup) and result.speedup > 0):
+        raise RuntimeError(f"simulated time {result.time} / speedup {result.speedup}")
+    if plan.stage_plan is not None and "WARNING: TAG pipeline fallback" not in out.getvalue():
+        raise RuntimeError("the plan pipelines but the fallback line was not printed")
+    if any(counts.values()):
+        raise RuntimeError(f"the train path launched a forward-only kernel: {counts}")
+    ln_v = float(np.log(get_config(QWEN).vocab_size))
+    if not (len(losses) == 3 and all(np.isfinite(losses))
+            and abs(losses[0] - ln_v) <= TRAIN_LOSS_WINDOW):
+        raise RuntimeError(f"losses {losses}: not 3 finite losses, the first within "
+                           f"{TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
+    torch.cuda.empty_cache()
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1007,6 +1162,11 @@ def main(argv=None) -> int:
             phase_train(arch, args.seed)
         for arch in (QWEN, MAMBA):
             train_parity(arch, args.seed)
+        phase = "plan"
+        for arch in (QWEN, MAMBA):
+            plan_trace(arch, smi)
+        plan_gemm_profile(smi)
+        plan_tag_search(smi)
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"

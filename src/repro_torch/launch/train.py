@@ -6,12 +6,17 @@
 
 Synthetic data pipeline -> train step (loss, backward, clip, AdamW) ->
 checkpoints -> metrics log. Runs on the card unless ``--device cpu``.
-``repro``'s flags for strategy search, pipelines and tracing are accepted by
-name and refused, each naming the ROADMAP item (queue 1) that brings it.
+``--tag-search`` first runs the TAG strategy search on a reduced trace of
+the model over an H100 cluster (``core.device.h100_nodes``) and prints the
+lowered plan. A plan that pipelines falls back, with a warning, to the
+single-device path when the run has fewer devices than stages; running the
+pipeline itself, and ``repro``'s engine and tracing flags, are refused,
+each naming the ROADMAP item (queue 1) that brings it.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -25,19 +30,69 @@ from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim.adam import AdamW
 
+PIPELINE_ITEM = "1.5, pipeline engines"
 # flag -> (argparse keywords, the ROADMAP item, queue 1, that brings it)
 UNPORTED_FLAGS = {
-    "--tag-search": ({"action": "store_true"}, "1.4, planner copy + --tag-search"),
-    "--pipeline": ({}, "1.5, pipeline engines"),
-    "--engine": ({}, "1.5, pipeline engines"),
-    "--scan-unroll": ({}, "1.5, pipeline engines"),
-    "--n-micro": ({}, "1.5, pipeline engines"),
-    "--n-chunks": ({}, "1.5, pipeline engines"),
+    "--engine": ({}, PIPELINE_ITEM),
+    "--scan-unroll": ({}, PIPELINE_ITEM),
+    "--n-chunks": ({}, PIPELINE_ITEM),
     "--trace-dir": ({}, "1.7, measurement and observability"),
     "--spool-dir": ({}, "1.7, measurement and observability"),
     "--run-id": ({}, "1.7, measurement and observability"),
     "--xla-profile": ({"action": "store_true"}, "1.7, measurement and observability"),
 }
+
+
+def resolve_pipeline(plan, mode: str, devices) -> None:
+    """Decide whether a lowered TAG plan's PIPE stages can really run on
+    ``devices``, emitting an explicit log line either way, so a strategy
+    with PIPE actions is never silently degraded. Returns None for the
+    single-device path; where ``repro`` would run its pipeline engine this
+    raises, since the engines are not ported yet."""
+    sp = plan.stage_plan
+    if sp is None:
+        if plan.summary.get("options", {}).get("PIPE"):
+            print("TAG pipeline: strategy has PIPE actions but no "
+                  "multi-group pipeline spine; using single-mesh axis "
+                  "rules", flush=True)
+        return None
+    if mode == "off":
+        print(f"TAG pipeline: --pipeline off; degrading {sp.n_stages}-stage "
+              f"plan to single-mesh axis rules", flush=True)
+        return None
+    from repro_torch.exec.stages import PipelineInfeasible
+    try:
+        sp.assign_local_devices(devices)
+    except PipelineInfeasible as e:
+        print(f"WARNING: TAG pipeline fallback — {e}; degrading to "
+              f"single-mesh DP axis rules", flush=True)
+        return None
+    sched = sp.schedule if mode == "auto" else mode
+    raise NotImplementedError(
+        f"running the {sp.n_stages}-stage TAG plan (schedule={sched}) needs a "
+        f"pipeline engine, not ported yet (ROADMAP queue 1, item {PIPELINE_ITEM})")
+
+
+def plan_deployment(arch: str, device, n_micro: int = 4):
+    """TAG search for ``arch``, as ``repro.launch.train --tag-search`` runs
+    it: trace the reduced config's loss at batch 4 x seq 32, search 24
+    playouts over 24 op groups on ``h100_nodes()``, lower the best strategy.
+    Returns (TAGResult, ExecutionPlan)."""
+    from repro_torch.core import tag as tag_mod
+    from repro_torch.core.device import h100_nodes
+    from repro_torch.core.plan import lower_strategy
+    from repro_torch.models.model import loss_fn
+
+    red = dataclasses.replace(get_reduced(arch), attn_impl="jnp")
+    rp = init_params(red, torch.Generator(device=device).manual_seed(0), device)
+    ds0 = SyntheticDataset(red.vocab_size, 32, 4,
+                           frontend_tokens=red.frontend_tokens if red.frontend != "none" else 0,
+                           d_model=red.d_model)
+    rb = ds0.device_batch(0, device)
+    topo = h100_nodes()
+    result = tag_mod.optimize(lambda p, b: loss_fn(red, p, b, remat=False)[0],
+                              rp, rb, topo, name=arch, iterations=24, n_groups=24)
+    return result, lower_strategy(result.strategy, result.gg, topo, n_micro=n_micro)
 
 
 def main(argv=None):
@@ -57,6 +112,14 @@ def main(argv=None):
     ap.add_argument("--telemetry-dir", default="",
                     help="record per-step telemetry to this measurement log")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--tag-search", action="store_true",
+                    help="run TAG strategy search and apply its plan")
+    ap.add_argument("--pipeline", choices=["auto", "off", "gpipe", "1f1b", "interleaved", "zb"],
+                    default="auto",
+                    help="how to execute PIPE actions in a TAG plan: auto uses the schedule "
+                         "the searched strategy voted for, off forces single-device rules, "
+                         "a schedule name asks for that schedule")
+    ap.add_argument("--n-micro", type=int, default=4, help="microbatches per pipelined step")
     for flag, (kw, _) in UNPORTED_FLAGS.items():
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
@@ -67,6 +130,19 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
+
+    if args.tag_search:
+        t0 = time.perf_counter()
+        result, plan = plan_deployment(args.arch, device, n_micro=args.n_micro)
+        print(f"TAG search: {len(result.gg.base.nodes)} ops in {result.gg.n} groups, "
+              f"simulated {result.time:.6g} s vs DP-AllReduce {result.baseline_time:.6g} s, "
+              f"{len(result.sfb_plans)} SFB duplications, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        print(f"TAG plan: speedup={result.speedup:.2f}x "
+              f"summary={json.dumps(plan.summary)}", flush=True)
+        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                   if device.type == "cuda" else [device])
+        resolve_pipeline(plan, args.pipeline, devices)
     opt = AdamW(lr=args.lr)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     opt_state = opt.init(params)

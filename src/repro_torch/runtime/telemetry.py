@@ -3,7 +3,7 @@ launcher uses: ``StepRecord``, an append-only ``MeasurementStore`` in the same
 JSONL format (``repro``'s store reads the port's logs), and ``StepTimer``.
 
 The rest of the runtime-feedback subsystem (reading, calibration, drift)
-waits for the planner slice (ROADMAP, queue 1, item 4).
+is a later slice (ROADMAP, queue 1, item 7).
 """
 from __future__ import annotations
 

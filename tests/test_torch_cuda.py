@@ -269,3 +269,33 @@ def test_train_step_on_card_matches_cpu(arch):
         a = updated["cuda"][k]
         assert (a - b).abs().max().item() <= 1e-5 * max(1.0, b.abs().max().item()), k
 
+
+
+@pytest.mark.gpu
+def test_profiler_times_bf16_gemms_with_cuda_events():
+    """``core.profiler`` on the card: CUDA-event times that grow with the
+    batch, and a utilization fit against the H100 peak within (0, 1]."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.device import GPU_PEAKS
+    from repro_torch.core.profiler import fit_utilization, profile_matmul_batches
+    batches, dim = (1024, 4096, 16384), 2048
+    line = profile_matmul_batches(batches, dim=dim, device="cuda")
+    assert line.b > 0 and line(batches[-1]) > line(batches[0])
+    util = fit_utilization([2.0 * b * dim * dim for b in batches],
+                           [line(b) for b in batches], GPU_PEAKS["H100"]["peak_flops"])
+    assert util is not None and 0 < util <= 1
+
+
+@pytest.mark.gpu
+def test_tag_search_traces_on_the_card(capsys):
+    """The train launcher's plan on the card: fake CUDA tensors trace, the
+    search runs, and one device falls back with the explicit warning."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import train as ttrain
+    losses = ttrain.main(["--smoke", "--tag-search", "--steps", "2", "--batch", "2",
+                          "--seq", "32"])
+    out = capsys.readouterr().out
+    assert "TAG plan: speedup=" in out and "on cuda" in out
+    assert len(losses) == 2 and all(np.isfinite(losses))

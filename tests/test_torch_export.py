@@ -1,0 +1,243 @@
+"""The port's training-graph tracer (``repro_torch.core.torch_export``, aten
+through ``make_fx``) against ``repro.core.jax_export`` (jaxprs), on reduced
+qwen2-1.5b and mamba2-130m in f32 with the same parameters (drawn by
+``repro.models.init_params``, carried over by ``repro_torch.models.convert``)
+and the same numpy batch.
+
+What must agree, and how closely:
+- parameter nodes, ApplyGradient nodes and the gradient bytes they receive:
+  equal, leaf by leaf, in ``jax.tree.flatten``'s order;
+- matmul FLOPs (``dot_general`` against the ``mm`` family): within 1 %.
+  Mamba's scan is a ``lax.scan`` in ``repro`` and a Python loop in the port;
+  ``lax.scan``'s transpose also computes, per layer, three products autograd
+  skips: the gradient into the zero initial state and the last chunk's
+  state-update gradient, whose output nobody reads (``DEAD_SSD_PRODUCTS``);
+  they are taken out of the JAX count before comparing;
+- every forward projection (``x @ W``) CONCAT and every gradient producer
+  SUM, after aten flattened the batch into ``B*S`` rows;
+- after ``simplify`` no cast, clone, detach or broadcast node is left;
+- a TAG search over ``tpu_pods()`` on each torch graph finds a feasible
+  strategy, and the DP steps of the two graphs, each in one op group, are
+  within 10 % of each other.
+
+``python tests/test_torch_export.py`` prints the ratios PERF.md records.
+"""
+import collections
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp
+
+from repro import models as jmodels
+from repro.configs import get_reduced as jax_get_reduced
+from repro.core import device as r_device, graph as r_graph, partition as r_partition
+from repro.core import strategy as r_strategy, tag as r_tag
+from repro.core.jax_export import trace_training_graph as jax_trace
+from repro.data.synthetic import SyntheticDataset
+from repro_torch.configs import get_reduced
+from repro_torch.core import device as t_device, graph as t_graph, partition as t_partition
+from repro_torch.core import strategy as t_strategy, tag as t_tag
+from repro_torch.core.graph import Split
+from repro_torch.core.torch_export import trace_training_graph as torch_trace
+from repro_torch.models import model as tmodel
+from repro_torch.models.convert import params_from_numpy
+
+ARCHS = ("qwen2-1.5b", "mamba2-130m")
+BATCH, SEQ = 4, 64
+MATMUL_RTOL = 0.01
+BASELINE_RTOL = 0.10
+N_GROUPS = 24
+MATMULS = {"mm", "bmm", "addmm", "baddbmm", "convolution"}
+TRIVIAL = {"convert_element_type", "copy", "stop_gradient", "broadcast_in_dim"}
+# ops through which a parameter reaches a product unchanged
+PARAM_PATH = {"unbind", "select", "view", "_unsafe_view", "t", "transpose", "permute",
+              "stop_gradient", "alias", "broadcast_in_dim", "convert_element_type"}
+DEAD_SSD_PRODUCTS = 3
+
+
+def _cfgs(arch):
+    kw = {"ssm_chunk": 32} if arch == "mamba2-130m" else {}
+    return (jax_get_reduced(arch).replace(dtype="float32", **kw),
+            get_reduced(arch).replace(dtype="float32", attn_impl="jnp", **kw))
+
+
+@functools.cache
+def graphs(arch):
+    """(JAX graph, torch graph), both unsimplified."""
+    jcfg, tcfg = _cfgs(arch)
+    jp = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    batch = SyntheticDataset(jcfg.vocab_size, SEQ, BATCH, seed=3).batch(0)
+    jg = jax_trace(lambda p, b: jmodels.loss_fn(jcfg, p, b, remat=False)[0], jp,
+                   jax.tree.map(jnp.asarray, batch), arch)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    tg = torch_trace(lambda p, b: tmodel.loss_fn(tcfg, p, b, remat=False)[0], tp, tb, arch)
+    return jg, tg
+
+
+def _leaves(g):
+    """Per parameter leaf: (param node, ApplyGradient node, its producer)."""
+    params = sorted((n for n in g.nodes.values() if n.is_param),
+                    key=lambda n: int(n.name.split("_")[1]))
+    apply = {int(n.name.split("_")[-1]): n for n in g.nodes.values() if n.is_apply_grad}
+    prod = {n.grad_of: n for n in g.nodes.values() if n.is_grad_producer}
+    return [(p, apply[i], prod[apply[i].op_id]) for i, p in enumerate(params)]
+
+
+def matmul_flops(g, types) -> float:
+    return sum(n.flops for n in g.nodes.values() if n.op_type in types)
+
+
+def dead_ssd_flops(arch) -> float:
+    """FLOPs of the products ``lax.scan``'s transpose computes and autograd
+    skips: per layer, three (B, Q) x (Q, nh, hd, ds) contractions."""
+    _, cfg = _cfgs(arch)
+    if "M" not in cfg.pattern:
+        return 0.0
+    Q = min(cfg.ssm_chunk, SEQ)
+    per = 2.0 * BATCH * Q * cfg.ssm_nheads * cfg.ssm_head_dim * cfg.ssm_state
+    return DEAD_SSD_PRODUCTS * per * cfg.pattern.count("M") * cfg.num_periods
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_and_apply_nodes_match_leaf_by_leaf(arch):
+    jg, tg = graphs(arch)
+    jl, tl = _leaves(jg), _leaves(tg)
+    assert len(jl) == len(tl) > 5
+    for (jp, ja, jprod), (tp, ta, tprod) in zip(jl, tl):
+        assert tp.param_bytes == jp.param_bytes > 0
+        assert tp.bytes_out == jp.bytes_out
+        assert ta.flops == ja.flops and ta.bytes_out == ja.bytes_out
+        assert tprod.grad_bytes == jprod.grad_bytes == tp.param_bytes
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_matmul_flops_match(arch):
+    jg, tg = graphs(arch)
+    jm = matmul_flops(jg, {"dot_general", "conv_general_dilated"})
+    tm = matmul_flops(tg, MATMULS)
+    assert tm > 0
+    assert abs(tm - (jm - dead_ssd_flops(arch))) <= MATMUL_RTOL * jm
+
+
+def _param_rooted(g, op_id) -> bool:
+    node = g.nodes[op_id]
+    if node.is_param:
+        return True
+    return node.op_type in PARAM_PATH and all(_param_rooted(g, p) for p in g.preds(op_id))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_projections_concat_and_weight_grads_sum(arch):
+    """Trap 1 of tracing aten: ``linear`` on (B, S, D) runs on (B*S, D)."""
+    _, tg = graphs(arch)
+    _, cfg = _cfgs(arch)
+    tg.build_adj()
+    proj = [n for n in tg.nodes.values() if n.op_type in ("mm", "addmm")
+            and [_param_rooted(tg, p) for p in tg.preds(n.op_id)][-2:] == [False, True]]
+    # every layer's projections and the head, in the forward pass (and the
+    # input gradients of the same products in the backward pass)
+    per_layer = (4 if "A" in cfg.pattern else 2) + (3 if cfg.d_ff else 0)
+    assert len(proj) >= 2 * (per_layer * cfg.num_layers + 1)
+    assert {n.split for n in proj} == {Split.CONCAT}
+    assert all(n.batch_dim for n in proj)
+    prods = [prod for _, _, prod in _leaves(tg)]
+    assert {p.split for p in prods} == {Split.SUM}, [(p.name, p.split) for p in prods]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_simplify_drops_casts_copies_detaches_and_broadcasts(arch):
+    """Trap 2: aten's ``_to_copy``, ``clone``, ``detach`` and ``expand`` go
+    under the JAX names that ``CompGraph.simplify`` drops."""
+    _, tg = graphs(arch)
+    before = collections.Counter(n.op_type for n in tg.nodes.values())
+    assert sum(before[t] for t in TRIVIAL) > 0
+    n_grads = sum(n.is_grad_producer for n in tg.nodes.values())
+    s = dataclasses.replace(tg, nodes=dict(tg.nodes), edges=list(tg.edges)).simplify()
+    left = [n.name for n in s.nodes.values() if n.op_type in TRIVIAL
+            or n.name.startswith(("_to_copy_", "clone_", "detach_", "expand_"))]
+    assert not left
+    assert sum(n.is_grad_producer for n in s.nodes.values()) == n_grads
+    assert s.total_flops() == tg.total_flops()
+
+
+@functools.cache
+def searched(arch):
+    """The port's search on the torch graph, and the JAX graph simplified."""
+    jcfg, tcfg = _cfgs(arch)
+    jp = jmodels.init_params(jcfg, jax.random.PRNGKey(0))
+    batch = SyntheticDataset(jcfg.vocab_size, SEQ, BATCH, seed=3).batch(0)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    result = t_tag.optimize(lambda p, b: tmodel.loss_fn(tcfg, p, b, remat=False)[0], tp, tb,
+                            t_device.tpu_pods(), name=arch, n_groups=N_GROUPS, iterations=24)
+    jg, _ = graphs(arch)
+    return result, r_graph.CompGraph(nodes=dict(jg.nodes), edges=list(jg.edges)).simplify()
+
+
+def dp_times(arch, n_groups: int) -> dict:
+    """Option -> (the port's simulated DP step on the torch graph, repro's on
+    the JAX graph), over ``tpu_pods()``, each graph in ``n_groups`` groups."""
+    result, js = searched(arch)
+    ts = result.gg.base
+    if n_groups == N_GROUPS:
+        tgg = result.gg
+    else:
+        tgg = t_graph.group_graph(ts, t_partition.partition(ts, n_groups))
+    jgg = r_graph.group_graph(js, r_partition.partition(js, n_groups))
+    rt, tt = r_device.tpu_pods(), t_device.tpu_pods()
+    out = {}
+    for opt in ("AR", "PS"):
+        t = t_tag.evaluate_strategy(
+            tgg, t_tag.dp_baseline(tgg, tt, t_strategy.Option[opt]), tt)[0]
+        j = r_tag.evaluate_strategy(
+            jgg, r_tag.dp_baseline(jgg, rt, r_strategy.Option[opt]), rt)[0]
+        out[opt] = (t.makespan, j.makespan)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_tag_search_on_torch_graph_over_tpu_pods(arch):
+    """A feasible plan, ranked against the DP-AllReduce baseline; the DP
+    steps of the same work on the two graphs within 10 %. They are compared
+    with each graph in one op group: in 24 groups each DP step of these
+    reduced models is a count of latency-bound collectives, one per group
+    that holds gradients, which the partition of each graph decides (PERF.md
+    records both)."""
+    result, _ = searched(arch)
+    assert result.strategy.complete() and len(result.strategy.actions) == result.gg.n
+    assert result.result.feasible
+    assert np.isfinite(result.time) and result.time > 0 and result.speedup > 0
+    assert dp_times(arch, N_GROUPS)["AR"][0] == result.baseline_time
+    for opt, (t, j) in dp_times(arch, 1).items():
+        assert abs(t - j) <= BASELINE_RTOL * j, (opt, t, j)
+
+
+if __name__ == "__main__":
+    for arch in ARCHS:
+        jg, tg = graphs(arch)
+        jm = matmul_flops(jg, {"dot_general", "conv_general_dilated"})
+        tm = matmul_flops(tg, MATMULS)
+        print(f"{arch}: nodes jax {len(jg.nodes)} torch {len(tg.nodes)}; matmul FLOPs "
+              f"torch/jax {tm / jm:.6f}, torch/(jax - dead scan products) "
+              f"{tm / (jm - dead_ssd_flops(arch)):.6f}; total FLOPs torch/jax "
+              f"{tg.total_flops() / jg.total_flops():.6f}")
+        for name, g in (("jax", jg), ("torch", tg)):
+            share = collections.Counter()
+            for n in g.nodes.values():
+                share[n.split.name] += n.flops / g.total_flops()
+            print(f"  {name} FLOP share by split: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in sorted(share.items())))
+        result, _ = searched(arch)
+        for n in (1, N_GROUPS):
+            for opt, (t, j) in dp_times(arch, n).items():
+                print(f"  DP-{opt} on tpu_pods, {n} groups: torch graph {t:.6g} s, "
+                      f"jax graph {j:.6g} s, ratio {t / j:.4f}")
+        print(f"  search: {result.gg.n} groups, speedup {result.speedup:.4f}, "
+              f"feasible {result.result.feasible}")

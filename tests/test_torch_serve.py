@@ -125,6 +125,12 @@ def test_port_imports_neither_jax_nor_repro():
     scanned = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
     assert {"optim/adam.py", "launch/steps.py", "launch/train.py", "data/synthetic.py",
             "checkpoint/ckpt.py", "runtime/telemetry.py", "models/ssm.py"} <= scanned
+    # the planner: core/, exec/ and obs/
+    assert {"core/graph.py", "core/partition.py", "core/device.py", "core/strategy.py",
+            "core/profiler.py", "core/compiler.py", "core/simulator.py", "core/features.py",
+            "core/fingerprint.py", "core/sfb.py", "core/mcts.py", "core/tag.py",
+            "core/plan.py", "core/torch_export.py", "exec/__init__.py", "exec/stages.py",
+            "exec/schedule.py", "obs/__init__.py", "obs/spans.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

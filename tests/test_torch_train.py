@@ -335,6 +335,63 @@ def test_train_cli_needs_a_card_unless_asked_for_cpu():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--smoke", "--tag-search", "--steps", "1"])
+
+
+def test_train_cli_tag_search_plans_then_trains(capsys):
+    """``--tag-search`` on the CPU: the TAG plan over an H100 cluster is
+    printed, a plan that pipelines falls back to the one device with the
+    explicit warning, and the configured model trains."""
+    losses = ttrain.main(["--smoke", "--device", "cpu", "--tag-search", "--steps", "2",
+                          "--batch", "2", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert "TAG plan: speedup=" in out and "summary=" in out
+    assert " groups, simulated " in out
+    plan_line = next(line for line in out.splitlines() if line.startswith("TAG plan:"))
+    if '"n_stages": 0' not in plan_line:
+        assert "WARNING: TAG pipeline fallback" in out
+    assert "training qwen2-smoke" in out
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+def _pipe_plan():
+    """A lowered plan whose PIPE actions span two H100 nodes: two stages."""
+    from repro_torch.core.device import h100_nodes
+    from repro_torch.core.graph import CompGraph, OpNode, group_graph
+    from repro_torch.core.plan import lower_strategy
+    from repro_torch.core.strategy import Action, Option, Strategy
+    g = CompGraph(name="chain")
+    for i in range(8):
+        g.add_node(OpNode(i, f"op{i}", "mm", flops=1e9, bytes_out=1e6, param_bytes=4e5,
+                          grad_bytes=4e5, is_grad_producer=True))
+        if i:
+            g.add_edge(i - 1, i, 1e6)
+    gg = group_graph(g, {i: i // 2 for i in range(8)})
+    strat = Strategy([Action((0, 1), Option.PIPE if i % 2 == 0 else Option.PS)
+                      for i in range(gg.n)])
+    plan = lower_strategy(strat, gg, h100_nodes())
+    assert plan.stage_plan is not None and plan.stage_plan.n_stages == 2
+    return plan
+
+
+@pytest.mark.parametrize("mode", ["auto", "gpipe", "1f1b", "interleaved", "zb"])
+def test_pipelined_plan_raises_where_it_has_the_devices(mode):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 1\.5"):
+        ttrain.resolve_pipeline(_pipe_plan(), mode, [CPU, CPU])
+
+
+def test_pipelined_plan_falls_back_without_the_devices(capsys):
+    plan = _pipe_plan()
+    assert ttrain.resolve_pipeline(plan, "zb", [CPU]) is None
+    assert "WARNING: TAG pipeline fallback" in capsys.readouterr().out
+    assert ttrain.resolve_pipeline(plan, "off", [CPU, CPU]) is None
+    assert "--pipeline off" in capsys.readouterr().out
+
+
+def test_engine_scan_still_raises():
+    with pytest.raises(NotImplementedError, match=r"--engine .*ROADMAP queue 1, item 1\.5"):
+        ttrain.main(["--smoke", "--device", "cpu", "--tag-search", "--engine", "scan"])
 
 
 def test_instrumented_step_times_each_call():
