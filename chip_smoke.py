@@ -50,7 +50,24 @@ Phases, each printed on lines of its own and each fatal when it fails:
            the H100 row of the cost model; then ``train --tag-search`` as a
            user runs it: a plan over ``h100_nodes()`` and 3 steps of
            full-width qwen2-1.5b, every kernel count at 0 just before it.
-9. kernels one JSON line with every kernel's launches, error and times.
+           Both full-width graphs are then searched as the launcher searches
+           the reduced one: ``simplify``, ``partition`` into 24 groups and
+           24 MCTS playouts over ``h100_nodes()``, each step timed.
+9. pipeline the eager pipeline engine, every kernel count at 0 just before
+           it. A gradient gate at full width: qwen2-1.5b at d_model 1536
+           and 4 layers in f32, batch 8 x 128, all four schedules on
+           ``[cuda:0, cuda:0]`` and AR, PS and SFB with 2-way stage data
+           parallelism on ``[cuda:0] * 4`` under 1f1b and zb, each against
+           the single-device gradient on the card. Then a user's run:
+           ``run_pipeline`` on full-width, full-depth qwen2-1.5b in bf16 at
+           batch 8 x 512, ``n_micro`` 4, 3 steps, with the 2-stage plan of
+           ``plan_deployment`` and with a hand-built 2-stage plan; each
+           step's time, events and stash come from the engine's telemetry
+           records. Each pipeline is then built again and takes one train
+           step without per-event synchronization, timed and profiled. On
+           one card this checks the schedule and the gradients and measures
+           the engine's overhead, not overlap.
+10. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -108,6 +125,15 @@ TRACE_FLOPS_RTOL = 0.02
 GEMM_BATCHES, GEMM_DIM = (1024, 2048, 4096, 8192, 16384), 4096
 TAG_SEARCH_ARGV = ["--arch", "qwen2-1.5b", "--tag-search", "--steps", "3", "--batch", "8",
                    "--seq", "512", "--loss-chunk", "128"]
+SEARCH_GROUPS, SEARCH_PLAYOUTS = 24, 24
+# what the search of the full graphs took before simplify was linear (PR 15's
+# chip runs): qwen2-1.5b's simplify alone, and the call cut in mamba2-130m's
+PR15_QWEN_SIMPLIFY_S, PR15_MAMBA_CUT_S = 59.28, 1500
+# pipeline phase: the gradient gate (f32, full width, 4 layers so that
+# interleaved has 4 virtual stages of one layer) and a user's run (bf16, full
+# depth); the gate's error is max |a - b| / max |b| a leaf, the loss relative
+PIPE_GATE_LAYERS, PIPE_GATE_BATCH, PIPE_GATE_SEQ, PIPE_GATE_TOL = 4, 8, 128, 1e-4
+PIPE_RUN_BATCH, PIPE_RUN_SEQ, PIPE_RUN_MICRO, PIPE_RUN_STEPS = 8, 512, 4, 3
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
 SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
@@ -908,6 +934,7 @@ def phase_train(arch: str, seed: int):
         lambda: step_fn(params, opt_state, i, batches[i]), step_ms))
     del params, opt_state, batches
     torch.cuda.empty_cache()
+    return step_ms
 
 
 def train_parity(arch: str, seed: int):
@@ -1012,7 +1039,7 @@ def plain_route_matmul_flops(cfg, n_params: int, B: int, S: int) -> float:
 
 def plan_trace(arch: str, smi: str):
     """Full-width training graph traced on meta tensors; gates on parameter
-    bytes and matmul FLOPs."""
+    bytes and matmul FLOPs. Returns the graph, unsimplified."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core.torch_export import trace_training_graph
@@ -1031,9 +1058,9 @@ def plan_trace(arch: str, smi: str):
     mm = sum(n.flops for n in g.nodes.values() if n.op_type in ("mm", "bmm", "addmm", "baddbmm"))
     want_mm = plain_route_matmul_flops(cfg, n_params, B, S)
     model_flops = train_flops_per_token(cfg, n_params, S) * B * S
-    splits = {}
+    splits, total = {}, g.total_flops()
     for n in g.nodes.values():
-        splits[n.split.name] = splits.get(n.split.name, 0.0) + n.flops / g.total_flops()
+        splits[n.split.name] = splits.get(n.split.name, 0.0) + n.flops / total
     log("plan", f"{arch} full width, batch {B} x {S}, {cfg.dtype}: traced {len(g.nodes)} aten "
                 f"ops in {trace_s:.2f} s; "
                 f"parameter bytes {got_bytes:.0f} (model {want_bytes}); matmul FLOPs "
@@ -1046,6 +1073,39 @@ def plan_trace(arch: str, smi: str):
     if abs(mm / want_mm - 1) > TRACE_FLOPS_RTOL:
         raise RuntimeError(f"{arch}: traced matmul FLOPs {mm:.4g} are not within "
                            f"{TRACE_FLOPS_RTOL:.0%} of the analytic {want_mm:.4g}")
+    return g
+
+
+def plan_search(arch: str, g, smi: str):
+    """The search of a full-width graph, as the launcher searches the reduced
+    one: ``simplify``, ``partition``, then MCTS with the SFB post-pass over
+    ``h100_nodes()``, each step timed; the plan it lowers to."""
+    from repro_torch.core import tag as tag_mod
+    from repro_torch.core.device import h100_nodes
+    from repro_torch.core.graph import group_graph
+    from repro_torch.core.partition import partition
+    from repro_torch.core.plan import lower_strategy
+    topo = h100_nodes()
+    n0, e0 = len(g.nodes), len(g.edges)
+    t0 = time.perf_counter()
+    g.simplify()
+    t1 = time.perf_counter()
+    gg = group_graph(g, partition(g, SEARCH_GROUPS))
+    t2 = time.perf_counter()
+    result = tag_mod.optimize(None, None, None, topo, gg=gg, name=arch,
+                              iterations=SEARCH_PLAYOUTS, n_groups=SEARCH_GROUPS)
+    t3 = time.perf_counter()
+    plan = lower_strategy(result.strategy, gg, topo)
+    before = (f"PR 15: simplify alone {PR15_QWEN_SIMPLIFY_S} s" if arch == QWEN else
+              f"PR 15: not done, the call was cut at {PR15_MAMBA_CUT_S} s inside simplify")
+    log("plan", f"{arch} full-width search over {topo.name}: simplify {n0} nodes / {e0} edges "
+                f"-> {len(g.nodes)} / {len(g.edges)} in {t1 - t0:.3f} s ({before}); partition "
+                f"into {gg.n} groups {t2 - t1:.3f} s; MCTS {SEARCH_PLAYOUTS} playouts + SFB "
+                f"{t3 - t2:.3f} s; plan {plan.summary['options']}, {plan.summary['n_stages']} "
+                f"pipeline stages, simulated {result.time:.6g} s against DP-AllReduce "
+                f"{result.baseline_time:.6g} s, speedup {result.speedup:.4f}; {smi}")
+    if not (result.strategy.complete() and np.isfinite(result.time) and result.time > 0):
+        raise RuntimeError(f"{arch}: the full-width search gave no complete, finite plan")
 
 
 def plan_gemm_profile(smi: str):
@@ -1124,6 +1184,183 @@ def plan_tag_search(smi: str):
     torch.cuda.empty_cache()
 
 
+def _two_stage_plan(sync="allreduce", n_devices=1, n_micro=4):
+    """Two equal 1f1b stages, as a hand-built plan."""
+    from repro_torch.exec import StagePlan, StageSpec
+    return StagePlan(
+        stages=[StageSpec(i, i, [i], flops=1e9, param_bytes=0, grad_bytes=0, out_bytes=1e5,
+                          sync=sync, n_devices=n_devices, gpu_type="H100") for i in range(2)],
+        placement=(0, 1), n_micro=n_micro, schedule="1f1b")
+
+
+def pipeline_gate(dev, seed: int, smi: str):
+    """The engine's loss and gradients against the single-device gradient on
+    the same device, full-width qwen2-1.5b at 4 layers in f32: every
+    schedule on 2 stages (interleaved: 2 x 2 virtual stages), and AR, PS and
+    SFB with 2-way stage data parallelism under 1f1b and zb."""
+    from repro_torch.configs import get_config
+    from repro_torch.exec import PipelineRunner, split_model
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import from_leaves, leaves
+    cfg = get_config(QWEN).replace(dtype="float32", num_layers=PIPE_GATE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    shape = (PIPE_GATE_BATCH, PIPE_GATE_SEQ)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, shape), device=dev)
+             for k in ("tokens", "labels")}
+    ps = [t.clone().requires_grad_(True) for t in leaves(params)]
+    t0 = time.perf_counter()
+    loss, _ = loss_fn(cfg, from_leaves(params, ps), batch, remat=False)
+    ref = from_leaves(params, [g.detach() for g in torch.autograd.grad(loss, ps)])
+    ref_loss = float(loss.detach())
+    del ps, loss
+    torch.cuda.synchronize(dev)
+    ref_s = time.perf_counter() - t0
+
+    def cut(tree, lo, hi):
+        if isinstance(tree, dict):
+            return {k: cut(v, lo, hi) for k, v in tree.items()}
+        return tree[lo:hi]
+
+    cases = [(sched, "allreduce", 1, 4, 2 if sched == "interleaved" else 1)
+             for sched in ("gpipe", "1f1b", "interleaved", "zb")]
+    cases += [(sched, sync, 2, 2, 1)
+              for sched in ("1f1b", "zb") for sync in ("allreduce", "ps", "sfb")]
+    worst, lines = 0.0, []
+    for sched, sync, n, n_micro, V in cases:
+        plan = _two_stage_plan(sync, n, n_micro)
+        splits = plan.layer_splits(cfg.num_periods, n_chunks=V)
+        sp, fns, keys, tied = split_model(cfg, params, 2 * V, splits=splits)
+        runner = PipelineRunner(fns, plan, [[dev] * n] * 2, schedule=sched, n_micro=n_micro,
+                                n_chunks=V, mb_keys=keys, tied_ref=tied)
+        t0 = time.perf_counter()
+        grads, stats = runner.step(runner.place_params(sp), batch)
+        torch.cuda.synchronize(dev)
+        took = time.perf_counter() - t0
+        want = []
+        for u, (lo, hi) in enumerate(splits):
+            w = {"blocks": cut(ref["blocks"], lo, hi)}
+            if u == 0:
+                w["embed"] = ref["embed"]
+            if u == len(splits) - 1:
+                w["final_norm"] = ref["final_norm"]
+                if "head" in ref:
+                    w["head"] = ref["head"]
+            want.append(w)
+        errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                for g, w in zip(grads, want, strict=True)
+                for a, b in zip(leaves(g), leaves(w), strict=True) if b.numel()]
+        g_err, l_err = max(errs), abs(stats.loss - ref_loss) / abs(ref_loss)
+        worst = max(worst, g_err, l_err)
+        ok = g_err <= PIPE_GATE_TOL and l_err <= PIPE_GATE_TOL and all(
+            bool(torch.isfinite(x).all()) for g in grads for x in leaves(g))
+        name = f"{sched}{f' x{V}v' if V > 1 else ''}, {sync} x{n} a stage"
+        lines.append(f"{name}: loss rel {l_err:.3g}, gradients max rel {g_err:.3g}, "
+                     f"peak_stash {stats.peak_stash}, {took:.3f} s {'ok' if ok else 'FAILED'}")
+        if not ok:
+            log("pipeline", "; ".join(lines))
+            raise RuntimeError(f"pipeline {name}: loss {l_err:.3g} or gradients {g_err:.3g} "
+                               f"beyond {PIPE_GATE_TOL:g} of the single-device step")
+        del grads, stats, runner, sp
+    log("pipeline", f"gradient gate, {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers, "
+                    f"{cfg.dtype}, batch {PIPE_GATE_BATCH} x {PIPE_GATE_SEQ}, against one "
+                    f"device's loss {ref_loss:.6f} ({ref_s:.3f} s): " + "; ".join(lines)
+                    + f"; worst {worst:.3g} (tol {PIPE_GATE_TOL:g}, max |a - b| / max |b| a "
+                      f"leaf; loss relative); {smi}")
+
+
+def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True):
+    """``run_pipeline`` as a user runs it, full-width, full-depth qwen2-1.5b
+    in bf16, 3 steps: with ``searched``, the 2-stage plan of
+    ``plan_deployment`` (or a hand-built one where that plan has fewer than 2
+    stages) on ``[dev, dev]``, or ``[dev] * 4`` where a stage syncs by SFB;
+    otherwise a hand-built 2-stage 1f1b plan, equal halves, on ``[dev, dev]``,
+    the engine without stage data parallelism. The engine's ``StepRecord``s
+    in the telemetry directory give each step's time, events and stash.
+    Then the same pipeline, built afresh by ``build_pipeline``, takes two
+    more steps without per-event synchronization: the second is timed,
+    then one more runs under torch.profiler."""
+    import argparse
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime.telemetry import TELEMETRY_FILE
+    cfg = get_config(QWEN)
+    sp, source = None, "hand-built, 2 equal stages"
+    if searched:
+        t0 = time.perf_counter()
+        result, plan = train_mod.plan_deployment(QWEN, dev, n_micro=PIPE_RUN_MICRO)
+        sp = plan.stage_plan
+        source = (f"plan_deployment's ({0 if sp is None else sp.n_stages} stages, searched in "
+                  f"{time.perf_counter() - t0:.2f} s, speedup {result.speedup:.4f})")
+    if sp is None or sp.n_stages < 2:
+        sp = _two_stage_plan(n_micro=PIPE_RUN_MICRO)
+        source += ", fewer than 2 stages: a hand-built 2-stage plan" if searched else ""
+    # SFB needs two participants (the verifier's TAG302): a plan with an SFB
+    # stage gets two shards a stage, all on the one card
+    per_stage = 2 if any(st.sync == "sfb" for st in sp.stages) else 1
+    devices = [dev] * (per_stage * sp.n_stages)
+    args = argparse.Namespace(
+        arch=QWEN, batch=PIPE_RUN_BATCH, seq=PIPE_RUN_SEQ, lr=TRAIN_LR, seed=seed,
+        steps=PIPE_RUN_STEPS, log_every=1, ckpt_dir="", ckpt_every=0, resume=False,
+        pipeline="auto", n_micro=PIPE_RUN_MICRO, n_chunks=2, telemetry_dir="")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as telem:
+        args.telemetry_dir = telem            # the engine records every step
+        t0 = time.perf_counter()
+        losses = train_mod.run_pipeline(args, cfg, sp, devices)
+        wall = time.perf_counter() - t0
+        lines = (Path(telem) / TELEMETRY_FILE).read_text().splitlines()
+    recs = [json.loads(line) for line in lines]
+    peak = torch.cuda.max_memory_allocated(dev)
+    times = [r["wall_time"] * 1e3 for r in recs]
+    last = recs[-1]["meta"]
+    per = {}
+    for e in last["events"]:
+        per.setdefault((e["stage"], e["kind"]), []).append((e["finish"] - e["start"]) * 1e3)
+    events = ", ".join(f"stage {s} {k} {len(v)} x {statistics.mean(v):.3f} ms (sum "
+                       f"{sum(v):.3f})" for (s, k), v in sorted(per.items()))
+    ln_v = float(np.log(cfg.vocab_size))
+    single = "not measured" if train_step_ms is None else f"{train_step_ms:.3f} ms"
+    log("pipeline", f"run_pipeline {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+                    f"{cfg.dtype}, batch {PIPE_RUN_BATCH} x {PIPE_RUN_SEQ}, n_micro "
+                    f"{PIPE_RUN_MICRO}, schedule {sp.schedule}, stages {sp.n_stages} on "
+                    f"{[str(d) for d in devices]}, sync {[s.sync for s in sp.stages]}, layers "
+                    f"{sp.layer_splits(cfg.num_periods)}; plan {source}; "
+                    f"losses {', '.join(f'{x:.4f}' for x in losses)} (ln V {ln_v:.4f}); "
+                    f"engine ms a step (runner.step, every event synchronized to time it) "
+                    f"{', '.join(f'{t:.3f}' for t in times)}; single-device train_step_ms at "
+                    f"the same batch {single} (loss_chunk {TRAIN_LOSS_CHUNK}, full "
+                    f"checkpointing); peak_stash {last['peak_stash']}; max_memory_allocated "
+                    f"{peak / 2**30:.3f} GiB; {wall:.1f} s in all; events of the last step: "
+                    f"{events}; {smi}")
+    if not (len(losses) == len(recs) == PIPE_RUN_STEPS and all(np.isfinite(losses))
+            and abs(losses[0] - ln_v) <= TRAIN_LOSS_WINDOW):
+        raise RuntimeError(f"pipeline losses {losses}: not {PIPE_RUN_STEPS} finite losses, the "
+                           f"first within {TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
+    # the whole train step (engine, clip, AdamW) without per-event
+    # synchronization, then where its time goes
+    args.telemetry_dir = ""
+    run = train_mod.build_pipeline(args, cfg, sp, devices)
+    batch = run.dataset.device_batch(0, "cpu")
+    state = [run.params_list, run.opt_state_list]
+
+    def step():
+        state[0], state[1], _ = run.step_fn(state[0], state[1], 0, batch)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - t0) * 1e3
+    log("pipeline", f"{source}: one train step without per-event synchronization {free_ms:.3f} "
+                    f"ms; profile of one such step: {profile_train_step(step, free_ms)}; {smi}")
+    del run, state
+    torch.cuda.empty_cache()
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1158,15 +1395,26 @@ def main(argv=None) -> int:
         parity_flash(args.seed)
         parity_ssd(args.seed)
         phase = "train"
-        for arch in (QWEN, MAMBA):
-            phase_train(arch, args.seed)
+        train_ms = {arch: phase_train(arch, args.seed) for arch in (QWEN, MAMBA)}
         for arch in (QWEN, MAMBA):
             train_parity(arch, args.seed)
         phase = "plan"
-        for arch in (QWEN, MAMBA):
-            plan_trace(arch, smi)
+        graphs = {arch: plan_trace(arch, smi) for arch in (QWEN, MAMBA)}
         plan_gemm_profile(smi)
         plan_tag_search(smi)
+        for arch in (QWEN, MAMBA):
+            plan_search(arch, graphs.pop(arch), smi)
+        phase = "pipeline"
+        reset_counts()
+        dev = torch.device("cuda", 0)
+        pipeline_gate(dev, args.seed, smi)
+        pipeline_run(dev, args.seed, train_ms[QWEN], smi)
+        pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False)
+        counts = read_counts()
+        log("pipeline", f"kernel launches over the phase: {counts} (none expected: the engine "
+                        f"trains through the models' own routes)")
+        if any(counts.values()):
+            raise RuntimeError(f"the pipeline path launched a forward-only kernel: {counts}")
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"

@@ -20,16 +20,14 @@ from repro_torch.launch.device import resolve_device
 _BF16 = "bfloat16"
 
 
-def _flatten_tree(tree):
-    flat = {}
-
-    def rec(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                rec(v, path + (k,))
-        else:
-            flat[".".join(path)] = node
-    rec(tree, ())
+def _flatten_tree(tree, path=(), flat=None):
+    # no recursive closure: it would hold the tensors in a reference cycle
+    flat = {} if flat is None else flat
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten_tree(v, path + (k,), flat)
+    else:
+        flat[".".join(path)] = tree
     return flat
 
 

@@ -209,9 +209,16 @@ def tpu_pods(n_pods: int = 2, chips_per_group: int = 16,
 
 def h100_nodes(n_nodes: int = 2, gpus_per_node: int = 8) -> Topology:
     """H100 SXM nodes as device groups: NVLink 4 inside a node, one
-    400 Gb/s NDR InfiniBand port per direction between nodes."""
+    400 Gb/s NDR InfiniBand port per direction between nodes.
+
+    The link efficiencies are priors, set as ``tpu_pods`` sets them for
+    links that are not TCP: collectives across nodes 0.8, inside a node 0.9,
+    point to point 0.9. ``Topology``'s defaults (0.15 / 0.7 / 0.6) were
+    fitted to the paper's NCCL-over-TCP runs and would plan an NDR port at
+    7.5 GB/s. No NVLink or NDR collective has been measured to fit them."""
     groups = [DeviceGroup(i, "H100", gpus_per_node,
                           intra_bw=450e9)      # NVLink 4, per direction (data sheet)
               for i in range(n_nodes)]
     return Topology(groups, _full_inter(n_nodes, 50e9),   # 400 Gb/s NDR (data sheet)
-                    name=f"h100-{n_nodes}x{gpus_per_node}")
+                    name=f"h100-{n_nodes}x{gpus_per_node}",
+                    coll_eff_cross=0.8, coll_eff_intra=0.9, p2p_eff=0.9)

@@ -97,23 +97,44 @@ class CompGraph:
     def simplify(self):
         """Paper §4.1.1: drop identity/no-op nodes and dangling subgraphs not
         connected to optimizer (apply-grad) ops."""
-        # remove trivial ops by splicing edges through them
+        # remove trivial ops by splicing edges through them, in ascending id
+        # order, each tested for exactly one input on the graph as the
+        # earlier splices left it. Edges get ids in list order and spliced
+        # edges are appended, so each node's in/out dicts (id -> edge, kept
+        # in insertion order) list its live edges in edge-list order, and the
+        # survivors come out in the order a splice-and-rebuild loop leaves:
+        # linear in nodes + edges.
         trivial = {i for i, n in self.nodes.items()
                    if n.op_type in ("copy", "convert_element_type",
                                     "stop_gradient", "broadcast_in_dim")
                    and n.flops == 0 and not n.is_apply_grad
                    and not n.is_param}
-        self.build_adj()
+        live = dict(enumerate(self.edges))
+        ins = {i: {} for i in self.nodes}
+        outs = {i: {} for i in self.nodes}
+        for k, e in live.items():
+            outs[e.src][k] = e
+            ins[e.dst][k] = e
         for t in sorted(trivial):
-            ins, outs = self._in[t], self._out[t]
-            if len(ins) != 1:
+            if len(ins[t]) != 1:
                 continue
-            src = ins[0].src
-            for oe in outs:
-                self.edges.append(TensorEdge(src, oe.dst, oe.bytes))
-            self.edges = [e for e in self.edges if e.src != t and e.dst != t]
-            del self.nodes[t]
-            self.build_adj()
+            src = next(iter(ins[t].values())).src
+            spliced = [TensorEdge(src, oe.dst, oe.bytes) for oe in outs[t].values()]
+            for k, e in list(ins[t].items()) + list(outs[t].items()):
+                if k in live:
+                    del live[k]
+                    outs[e.src].pop(k, None)
+                    ins[e.dst].pop(k, None)
+            for e in spliced:
+                if e.src != t and e.dst != t:   # a self-loop's splice is dropped with t
+                    k = len(self.edges)
+                    self.edges.append(e)
+                    live[k] = e
+                    outs[e.src][k] = e
+                    ins[e.dst][k] = e
+            del self.nodes[t], ins[t], outs[t]
+        self.edges = list(live.values())
+        self.build_adj()
         # keep only nodes that reach (or are reached from) an anchor
         anchors = [i for i, n in self.nodes.items()
                    if n.is_apply_grad or n.is_grad_producer]

@@ -1,6 +1,10 @@
-"""Pipeline planning of the port: the stage partitioner (``stages``) and the
-four microbatch schedules with their timeline simulator (``schedule``), both
-numpy. The engines that run a ``StagePlan`` are a later slice."""
+"""Pipeline execution of the port: the stage partitioner (``stages``), the
+four microbatch schedules with their timeline simulator (``schedule``), the
+model adapter that cuts an LM into stage functions (``model_split``) and the
+eager engine that runs a ``StagePlan`` as a train step (``engine``)."""
+from repro_torch.exec.engine import (
+    PipelineRunner, StepStats, split_microbatches, stack_microbatches)
+from repro_torch.exec.model_split import split_model
 from repro_torch.exec.schedule import (
     SCHEDULES, Timeline, flatten_schedule, gpipe_schedule,
     interleaved_1f1b_schedule, make_schedule, max_feasible_micro,
@@ -12,6 +16,8 @@ from repro_torch.exec.stages import (
     vote_schedule)
 
 __all__ = [
+    "PipelineRunner", "StepStats", "split_microbatches", "stack_microbatches",
+    "split_model",
     "SCHEDULES", "Timeline", "flatten_schedule", "gpipe_schedule",
     "interleaved_1f1b_schedule", "make_schedule", "max_feasible_micro",
     "one_f_one_b_schedule", "peak_stash", "schedule_step_cost",

@@ -1,5 +1,4 @@
-"""End-to-end training driver on one device, the single-device loop of
-``repro.launch.train``.
+"""End-to-end training driver, the port of ``repro.launch.train``.
 
     python -m repro_torch.launch.train --arch qwen2-1.5b --smoke \
         --steps 20 --batch 8 --seq 128 [--device cpu]
@@ -8,10 +7,11 @@ Synthetic data pipeline -> train step (loss, backward, clip, AdamW) ->
 checkpoints -> metrics log. Runs on the card unless ``--device cpu``.
 ``--tag-search`` first runs the TAG strategy search on a reduced trace of
 the model over an H100 cluster (``core.device.h100_nodes``) and prints the
-lowered plan. A plan that pipelines falls back, with a warning, to the
-single-device path when the run has fewer devices than stages; running the
-pipeline itself, and ``repro``'s engine and tracing flags, are refused,
-each naming the ROADMAP item (queue 1) that brings it.
+lowered plan. A plan that pipelines runs through the eager pipeline engine
+(``run_pipeline``) where the run has at least as many devices as stages,
+and otherwise falls back, with a warning, to the single-device path.
+``repro``'s compiled engine and tracing flags are refused, each naming the
+ROADMAP item (queue 1) that brings it.
 """
 from __future__ import annotations
 
@@ -25,30 +25,30 @@ import torch
 from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint, save_checkpoint
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data.synthetic import SyntheticDataset
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim.adam import AdamW
 
-PIPELINE_ITEM = "1.5, pipeline engines"
+SCAN_ITEM = "1.3, the compiled engine"
+OBS_ITEM = "1.6, observability"
 # flag -> (argparse keywords, the ROADMAP item, queue 1, that brings it)
 UNPORTED_FLAGS = {
-    "--engine": ({}, PIPELINE_ITEM),
-    "--scan-unroll": ({}, PIPELINE_ITEM),
-    "--n-chunks": ({}, PIPELINE_ITEM),
-    "--trace-dir": ({}, "1.7, measurement and observability"),
-    "--spool-dir": ({}, "1.7, measurement and observability"),
-    "--run-id": ({}, "1.7, measurement and observability"),
-    "--xla-profile": ({"action": "store_true"}, "1.7, measurement and observability"),
+    "--scan-unroll": ({}, SCAN_ITEM),
+    "--trace-dir": ({}, OBS_ITEM),
+    "--spool-dir": ({}, OBS_ITEM),
+    "--run-id": ({}, OBS_ITEM),
+    "--xla-profile": ({"action": "store_true"}, OBS_ITEM),
 }
 
 
-def resolve_pipeline(plan, mode: str, devices) -> None:
+def resolve_pipeline(plan, mode: str, devices=None):
     """Decide whether a lowered TAG plan's PIPE stages can really run on
-    ``devices``, emitting an explicit log line either way, so a strategy
-    with PIPE actions is never silently degraded. Returns None for the
-    single-device path; where ``repro`` would run its pipeline engine this
-    raises, since the engines are not ported yet."""
+    ``devices`` (default: every local device). Returns the ``StagePlan`` to
+    execute, or None for the single-device path, emitting an explicit log
+    line either way, so that a strategy with PIPE actions is never silently
+    degraded."""
     sp = plan.stage_plan
     if sp is None:
         if plan.summary.get("options", {}).get("PIPE"):
@@ -62,15 +62,157 @@ def resolve_pipeline(plan, mode: str, devices) -> None:
         return None
     from repro_torch.exec.stages import PipelineInfeasible
     try:
-        sp.assign_local_devices(devices)
+        mesh_mod.stage_device_sets(sp, devices)
     except PipelineInfeasible as e:
         print(f"WARNING: TAG pipeline fallback — {e}; degrading to "
               f"single-mesh DP axis rules", flush=True)
         return None
     sched = sp.schedule if mode == "auto" else mode
-    raise NotImplementedError(
-        f"running the {sp.n_stages}-stage TAG plan (schedule={sched}) needs a "
-        f"pipeline engine, not ported yet (ROADMAP queue 1, item {PIPELINE_ITEM})")
+    print(f"TAG pipeline: executing {sp.n_stages} stages "
+          f"(schedule={sched}, placement={list(sp.placement)}, "
+          f"sync={[s.sync for s in sp.stages]})", flush=True)
+    return sp
+
+
+def _stage_key(s: int) -> str:
+    return f"stage{s}"
+
+
+@dataclasses.dataclass
+class PipelineSession:
+    """What ``build_pipeline`` sets up: the runner, the train step over
+    per-stage lists, the stage states, the step to start from and the data."""
+    runner: object
+    step_fn: object
+    params_list: list
+    opt_state_list: list
+    start_step: int
+    dataset: SyntheticDataset
+    schedule: str
+    n_chunks: int
+    n_micro: int
+
+
+def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
+    """Everything of ``run_pipeline`` up to its first step: the resolved
+    schedule, ``n_micro`` and ``n_chunks``, the launch preflight, the stage
+    parameters and optimizer states (or those of the per-stage checkpoint
+    resumed), the runner and its train step."""
+    from repro_torch.exec import PipelineRunner, split_model
+    from repro_torch.exec.schedule import make_schedule
+    from repro_torch.verify import PlanVerificationError, verify_preflight
+
+    engine = getattr(args, "engine", None) or "eager"
+    if engine != "eager":
+        raise NotImplementedError(
+            f"--engine {engine} is not ported yet (ROADMAP queue 1, item {SCAN_ITEM})")
+    schedule = stage_plan.schedule if args.pipeline == "auto" else args.pipeline
+    n_chunks = max(2, args.n_chunks) if schedule == "interleaved" else 1
+    n_micro = max(1, args.n_micro)
+    while n_micro > 1 and (args.batch % n_micro
+                           or (schedule == "interleaved" and n_micro % stage_plan.n_stages)):
+        n_micro -= 1
+    if schedule == "interleaved" and n_micro % stage_plan.n_stages:
+        raise ValueError(
+            f"interleaved needs n_micro divisible by {stage_plan.n_stages} stages (and by "
+            f"batch {args.batch}); none <= {args.n_micro} works — pick --n-micro/--batch "
+            f"accordingly or another --pipeline schedule")
+    if n_micro != args.n_micro:
+        print(f"pipeline: n_micro {args.n_micro} -> {n_micro} (must divide batch {args.batch}"
+              + (f" and be a multiple of {stage_plan.n_stages} stages"
+                 if schedule == "interleaved" else "") + ")", flush=True)
+
+    device_sets = mesh_mod.stage_device_sets(stage_plan, devices)
+
+    # static preflight before any parameter is allocated: the resolved
+    # (schedule, n_micro, n_chunks) and the actual device sets, verified
+    # device-free; errors abort here, warnings print
+    pre = verify_preflight(
+        stage_plan, make_schedule(schedule, stage_plan.n_stages, n_micro, n_chunks=n_chunks),
+        n_micro, n_chunks=n_chunks, device_counts=[len(d) for d in device_sets])
+    if pre.errors():
+        raise PlanVerificationError(
+            pre, context=f"launch preflight ({schedule}, S={stage_plan.n_stages}, "
+                         f"n_micro={n_micro})")
+    for d in pre.warnings():
+        print(f"preflight: {d.format()}", flush=True)
+
+    dev0 = torch.device(device_sets[0][0])
+    params = init_params(cfg, torch.Generator(device=dev0).manual_seed(args.seed), dev0)
+    splits = stage_plan.layer_splits(cfg.num_periods, n_chunks=n_chunks)
+    stage_params, fns, mb_keys, tied = split_model(
+        cfg, params, stage_plan.n_stages * n_chunks, splits=splits)
+    del params
+
+    store = None
+    if args.telemetry_dir:
+        from repro_torch.runtime.telemetry import MeasurementStore
+        store = MeasurementStore(args.telemetry_dir)
+    runner = PipelineRunner(
+        fns, stage_plan, device_sets, schedule=schedule, n_micro=n_micro,
+        n_chunks=n_chunks, mb_keys=mb_keys, tied_ref=tied, store=store,
+        meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
+              "launcher": "train", "engine": engine, "run_id": f"train-{args.arch}"})
+
+    opt = AdamW(lr=args.lr)
+    params_list = runner.place_params(stage_params)
+    n_virtual = len(params_list)
+    opt_state_list = [runner.place(runner.phys(u), opt.init(p)) for u, p in enumerate(params_list)]
+    start_step = 0
+    if getattr(args, "resume", False) and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        start_step, tree = load_checkpoint(args.ckpt_dir, device="cpu")
+        keys = [_stage_key(u) for u in range(n_virtual)]
+        if sorted(tree["params"]) != sorted(keys):
+            raise ValueError(
+                f"checkpoint in {args.ckpt_dir} is not a {n_virtual}-stage pipeline "
+                f"checkpoint — resume it with the matching stage map and schedule "
+                f"(or without --tag-search for single-device checkpoints)")
+        params_list = [runner.place(runner.phys(u), tree["params"][k]) for u, k in enumerate(keys)]
+        opt_state_list = [runner.place(runner.phys(u), tree["opt_state"][k])
+                          for u, k in enumerate(keys)]
+        print(f"resumed pipelined run from step {start_step}", flush=True)
+    ds = SyntheticDataset(cfg.vocab_size, args.seq, args.batch, seed=args.seed,
+                          frontend_tokens=cfg.frontend_tokens if cfg.frontend != "none" else 0,
+                          d_model=cfg.d_model)
+    return PipelineSession(runner, steps_mod.make_pipeline_train_step(opt, runner), params_list,
+                           opt_state_list, start_step, ds, schedule, n_chunks, n_micro)
+
+
+def run_pipeline(args, cfg, stage_plan, devices=None):
+    """Train through the eager pipeline engine (``exec.engine``) on
+    ``devices`` (default: every local device; a list may repeat one, such as
+    ``[cuda:0] * 2``). ``args`` carries the launcher's fields; tests pass a
+    hand-built Namespace. Returns the losses."""
+    run = build_pipeline(args, cfg, stage_plan, devices)
+    schedule, n_chunks, n_micro = run.schedule, run.n_chunks, run.n_micro
+    params_list, opt_state_list = run.params_list, run.opt_state_list
+    start_step = run.start_step
+    losses = []
+    t_start = time.time()
+    for step in range(start_step, args.steps):
+        batch = run.dataset.device_batch(step, "cpu")
+        params_list, opt_state_list, metrics = run.step_fn(
+            params_list, opt_state_list, step, batch, record=run.runner.store is not None)
+        losses.append(metrics["loss"])
+        if step % args.log_every == 0:
+            chunks = f"x{n_chunks}v" if n_chunks > 1 else ""
+            print(f"step {step:5d} loss={metrics['loss']:.4f} ce={metrics['ce']:.4f} "
+                  f"gnorm={metrics['grad_norm']:.3f} "
+                  f"[pipeline {schedule} x{stage_plan.n_stages}{chunks}]", flush=True)
+        if args.ckpt_dir and args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            # per-stage trees keyed by stage (the flat-npz checkpointer walks
+            # dicts, not lists)
+            save_checkpoint(args.ckpt_dir, step + 1,
+                            {"params": {_stage_key(s): p for s, p in enumerate(params_list)},
+                             "opt_state": {_stage_key(s): o
+                                           for s, o in enumerate(opt_state_list)}})
+    dt = time.time() - t_start
+    n = max(args.steps - start_step, 1)
+    tail = f"; loss {losses[0]:.4f} -> {losses[-1]:.4f}" if losses else ""
+    print(f"done: {n} pipelined steps in {dt:.1f}s ({dt / n * 1e3:.0f} ms/step, "
+          f"schedule={schedule}, stages={stage_plan.n_stages}, n_micro={n_micro}){tail}",
+          flush=True)
+    return losses
 
 
 def plan_deployment(arch: str, device, n_micro: int = 4):
@@ -119,7 +261,12 @@ def main(argv=None):
                     help="how to execute PIPE actions in a TAG plan: auto uses the schedule "
                          "the searched strategy voted for, off forces single-device rules, "
                          "a schedule name asks for that schedule")
+    ap.add_argument("--engine", default="eager",
+                    help="pipeline execution engine: eager dispatches every schedule event "
+                         "from Python (scan, the compiled engine, is not ported yet)")
     ap.add_argument("--n-micro", type=int, default=4, help="microbatches per pipelined step")
+    ap.add_argument("--n-chunks", type=int, default=2,
+                    help="virtual model chunks per stage for the interleaved schedule")
     for flag, (kw, _) in UNPORTED_FLAGS.items():
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
     args = ap.parse_args(argv)
@@ -127,6 +274,9 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
+    if args.engine != "eager":
+        raise NotImplementedError(
+            f"--engine {args.engine} is not ported yet (ROADMAP queue 1, item {SCAN_ITEM})")
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
@@ -140,19 +290,21 @@ def main(argv=None):
               flush=True)
         print(f"TAG plan: speedup={result.speedup:.2f}x "
               f"summary={json.dumps(plan.summary)}", flush=True)
-        devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                   if device.type == "cuda" else [device])
-        resolve_pipeline(plan, args.pipeline, devices)
+        devices = mesh_mod.local_devices() if device.type == "cuda" else [device]
+        stage_plan = resolve_pipeline(plan, args.pipeline, devices)
+        if stage_plan is not None:
+            return run_pipeline(args, cfg, stage_plan, devices)
     opt = AdamW(lr=args.lr)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     opt_state = opt.init(params)
     start_step = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         start_step, tree = load_checkpoint(args.ckpt_dir, device=device)
-        if "stage0" in tree.get("params", {}):
+        if _stage_key(0) in tree.get("params", {}):
             raise ValueError(
-                f"checkpoint in {args.ckpt_dir} is a per-stage pipeline checkpoint; "
-                f"pipelines are not ported yet (ROADMAP queue 1, item 1.5)")
+                f"checkpoint in {args.ckpt_dir} is a per-stage pipeline checkpoint — "
+                f"resume it through the pipeline path (--tag-search with the same "
+                f"stage map)")
         params, opt_state = tree["params"], tree["opt_state"]
         print(f"resumed from step {start_step}", flush=True)
 

@@ -70,14 +70,16 @@ def index_tree(tree, i: int):
     return {k: index_tree(v, i) for k, v in tree.items()}
 
 
-def unstack_tree(tree, n: int) -> list:
-    """The ``n`` slices of every leaf's leading dim, as ``n`` trees of views.
-    One ``unbind`` a leaf: its backward stacks the slices' gradients once,
-    where ``n`` separate ``index_tree`` calls would each scatter into a
-    zero-filled copy of the whole leaf."""
+def unstack_tree(tree) -> list:
+    """The slices of every leaf's leading dim (one a period, or a pipeline
+    stage's span of periods), as trees of views. One ``unbind`` a leaf: its
+    backward stacks the slices' gradients once, where separate
+    ``index_tree`` calls would each scatter into a zero-filled copy of the
+    whole leaf."""
     if isinstance(tree, torch.Tensor):
         return list(tree.unbind(0))
-    per = {k: unstack_tree(v, n) for k, v in tree.items()}
+    per = {k: unstack_tree(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 

@@ -50,13 +50,19 @@ def _head(cfg, params, h):
     return h @ w
 
 
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    """Token embeddings (B, S, D), scaled by sqrt(d_model): the input of the
+    decoder stack, in ``forward`` and in a pipeline's first stage."""
+    return params["embed"][tokens] * (cfg.d_model ** 0.5)
+
+
 def forward(cfg: ModelConfig, params, batch, remat: bool = True,
             remat_policy: str = "full"):
     """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns (hidden
     (B, S, D), aux loss, n_prefix); n_prefix is 0 until the frontends are
     ported."""
     tokens = batch["tokens"]
-    x = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    x = embed_tokens(cfg, params, tokens)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x, aux = tf_mod.stack_fwd(cfg, params["blocks"], x, pos, remat=remat,
                               remat_policy=remat_policy)
@@ -104,7 +110,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1) int64; pos: absolute position.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
-    x = params["embed"][tokens] * (cfg.d_model ** 0.5)
+    x = embed_tokens(cfg, params, tokens)
     x, cache = tf_mod.stack_decode(cfg, params["blocks"], cache, x, pos)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(cfg, params, x), cache

@@ -90,7 +90,7 @@ REMAT_POLICIES = {
 
 def stack_fwd(cfg, stacked, x, pos, remat: bool = True, remat_policy: str = "full"):
     """x: (B, S, D) -> (x, total aux). ``stacked``: period params with a
-    leading num_periods dim. With ``remat``, each period runs under
+    leading dim of periods (all of them, or a pipeline stage's span). With ``remat``, each period runs under
     ``torch.utils.checkpoint`` and ``remat_policy`` picks what it saves for
     the backward pass (a recompute-against-memory trade)."""
     if remat_policy not in REMAT_POLICIES:
@@ -105,7 +105,7 @@ def stack_fwd(cfg, stacked, x, pos, remat: bool = True, remat_policy: str = "ful
             return checkpoint(period_fwd, cfg, pparams, x, pos, use_reentrant=False, **kw)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for pparams in unstack_tree(stacked, cfg.num_periods):
+    for pparams in unstack_tree(stacked):
         x, a = fn(cfg, pparams, x, pos)
         aux = aux + a
     return x, aux

@@ -46,11 +46,13 @@ def leaves(tree) -> list:
 
 def from_leaves(like, flat: list):
     """``flat``, in ``leaves`` order, as a tree shaped like ``like``."""
-    it = iter(flat)
+    return _rebuild(like, iter(flat))
 
-    def rec(node):
-        return {k: rec(node[k]) for k in sorted(node)} if isinstance(node, dict) else next(it)
-    return rec(like)
+
+def _rebuild(node, it):
+    # a module-level function: a recursive closure would hold the leaves in
+    # a reference cycle, freed only when the garbage collector runs
+    return {k: _rebuild(node[k], it) for k in sorted(node)} if isinstance(node, dict) else next(it)
 
 
 def adamw_init(params, state_dtype="float32"):

@@ -299,3 +299,46 @@ def test_tag_search_traces_on_the_card(capsys):
     out = capsys.readouterr().out
     assert "TAG plan: speedup=" in out and "on cuda" in out
     assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule,sync,n_devices", [("1f1b", "allreduce", 1),
+                                                     ("1f1b", "sfb", 2)])
+def test_pipeline_engine_on_card_matches_single_device(schedule, sync, n_devices):
+    """The eager pipeline engine on one card, every stage on ``cuda:0``
+    (2 stages, or 2 stages of 2 data-parallel shards each with SFB): loss and
+    gradients of reduced qwen2-1.5b in f32 against the single-device
+    gradient on the card, 1e-4 (the tolerance of tests/test_exec.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_reduced
+    from repro_torch.exec import PipelineRunner, StagePlan, StageSpec, split_model
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import from_leaves, leaves
+    cfg = get_reduced("qwen2-1.5b").replace(dtype="float32")
+    dev = torch.device("cuda", 0)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 16)), device=dev)
+             for k in ("tokens", "labels")}
+    ps = [t.clone().requires_grad_(True) for t in leaves(params)]
+    loss, _ = loss_fn(cfg, from_leaves(params, ps), batch, remat=False)
+    ref = from_leaves(params, list(torch.autograd.grad(loss, ps)))
+    plan = StagePlan(
+        stages=[StageSpec(i, i, [i], flops=1e9, param_bytes=0, grad_bytes=0, out_bytes=1e5,
+                          sync=sync, n_devices=n_devices, gpu_type="H100") for i in range(2)],
+        placement=(0, 1), n_micro=4 if n_devices == 1 else 2)
+    sp, fns, keys, tied = split_model(cfg, params, 2)
+    runner = PipelineRunner(fns, plan, [[dev] * n_devices] * 2, schedule=schedule,
+                            mb_keys=keys, tied_ref=tied)
+    grads, stats = runner.step(runner.place_params(sp), batch, record=True)
+    assert abs(stats.loss - float(loss)) < 1e-4
+    hi = cfg.num_periods // 2
+    pairs = [(grads[0]["embed"], ref["embed"]), (grads[1]["final_norm"], ref["final_norm"])]
+    pairs += list(zip(leaves(grads[0]["blocks"]), [t[:hi] for t in leaves(ref["blocks"])]))
+    pairs += list(zip(leaves(grads[1]["blocks"]), [t[hi:] for t in leaves(ref["blocks"])]))
+    for a, b in pairs:
+        assert a.device == dev
+        assert (a - b).abs().max().item() < 1e-4
+    assert stats.peak_stash == 3 and {e[0] for e in stats.events} == {"F", "B"}

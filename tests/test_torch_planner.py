@@ -126,6 +126,133 @@ def test_simplify_same(name):
     assert plain(rg.edges) == plain(tg.edges)
 
 
+def to_repro(g):
+    """A port CompGraph copied node by node into ``repro``'s."""
+    out = r_graph.CompGraph(name=g.name)
+    for n in g.nodes.values():
+        kw = {f.name: getattr(n, f.name) for f in dataclasses.fields(n)}
+        kw["split"] = r_graph.Split(n.split.value)
+        out.add_node(r_graph.OpNode(**kw))
+    for e in g.edges:
+        out.add_edge(e.src, e.dst, e.bytes)
+    return out
+
+
+def assert_simplify_same(tg):
+    """The port's linear ``simplify`` against ``repro``'s on copies of one
+    graph: the same surviving nodes, and the same (src, dst, bytes) edges in
+    the same order (``partition`` merges edges in list order)."""
+    rg = to_repro(tg)
+    tg = to_port(rg)
+    rs, ts = rg.simplify(), tg.simplify()
+    assert plain(rs.nodes) == plain(ts.nodes)
+    assert [(e.src, e.dst, e.bytes) for e in rs.edges] == \
+        [(e.src, e.dst, e.bytes) for e in ts.edges]
+    assert ts.topo_order() is not None
+    return rs, ts
+
+
+@functools.lru_cache(maxsize=None)
+def _port_trace(name: str):
+    """The port's own aten trace of the reduced model (torch_export)."""
+    import torch
+    from repro_torch.configs import get_reduced as t_get_reduced
+    from repro_torch.core.torch_export import trace_training_graph as torch_trace
+    from repro_torch.data.synthetic import SyntheticDataset as TDataset
+    from repro_torch.models import model as t_model
+    cfg = dataclasses.replace(t_get_reduced(name), attn_impl="jnp")
+    params = t_model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = TDataset(cfg.vocab_size, 32, 4).device_batch(0, "cpu")
+    return torch_trace(lambda p, b: t_model.loss_fn(cfg, p, b, remat=False)[0], params, batch,
+                       name)
+
+
+@pytest.mark.parametrize("name", GRAPHS[:2])
+def test_simplify_same_on_port_traces(name):
+    rs, ts = assert_simplify_same(_port_trace(name))
+    assert len(ts.nodes) < len(_port_trace(name).nodes)
+
+
+TRIVIAL_OPS = ("copy", "convert_element_type", "stop_gradient", "broadcast_in_dim")
+
+
+def _node(i, op, **kw):
+    return t_graph.OpNode(i, f"{op}{i}", op, **kw)
+
+
+def test_simplify_same_on_trivial_chains_and_parallel_edges():
+    """Hand-built cases: a chain of trivial nodes (each one's producer was
+    itself spliced), a trivial node fed by two parallel edges (two inputs:
+    kept), one with no input (kept), one feeding a parallel pair, and a
+    dangling branch the anchor pass drops."""
+    g = t_graph.CompGraph(name="chains")
+    g.add_node(_node(0, "dot_general", flops=1.0, is_grad_producer=True))
+    for i in range(1, 5):
+        g.add_node(_node(i, TRIVIAL_OPS[i % 4]))        # 1-4: a trivial chain
+    g.add_node(_node(5, "dot_general", flops=2.0, is_grad_producer=True))
+    g.add_node(_node(6, "copy"))                        # fed twice by 5
+    g.add_node(_node(7, "convert_element_type"))        # no input
+    g.add_node(_node(8, "add", flops=1.0))
+    g.add_node(_node(9, "broadcast_in_dim"))            # feeds 8 twice
+    g.add_node(_node(10, "mul", flops=1.0))             # dangling
+    g.add_node(_node(11, "apply", is_apply_grad=True))
+    for src, dst, b in [(0, 1, 8), (1, 2, 8), (2, 3, 4), (3, 4, 4), (4, 5, 4), (5, 6, 2),
+                        (5, 6, 3), (6, 8, 1), (7, 8, 5), (5, 9, 6), (9, 8, 7), (9, 8, 9),
+                        (8, 11, 1), (10, 10, 1)]:
+        g.add_edge(src, dst, b)
+    rs, ts = assert_simplify_same(g)
+    assert set(ts.nodes) == {0, 5, 6, 7, 8, 11}
+    assert [(e.src, e.dst, e.bytes) for e in ts.edges] == [
+        (5, 6, 2.0), (5, 6, 3.0), (6, 8, 1.0), (7, 8, 5.0), (8, 11, 1.0), (0, 5, 4.0),
+        (5, 8, 7.0), (5, 8, 9.0)]
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.data())
+def test_simplify_same_on_random_graphs(data):
+    """Random DAGs over trivial and real ops, with parallel edges, zero-input
+    trivial nodes and chains of trivial nodes."""
+    n = data.draw(st.integers(min_value=2, max_value=40))
+    g = t_graph.CompGraph(name="random")
+    for i in range(n):
+        op = data.draw(st.sampled_from(TRIVIAL_OPS + ("dot_general", "add")))
+        g.add_node(_node(i, op, flops=0.0 if op in TRIVIAL_OPS else 1.0,
+                         is_grad_producer=data.draw(st.booleans()) and op == "dot_general",
+                         is_param=data.draw(st.integers(0, 9)) == 0))
+    for _ in range(data.draw(st.integers(min_value=0, max_value=3 * n))):
+        a = data.draw(st.integers(min_value=0, max_value=n - 2))
+        b = data.draw(st.integers(min_value=a + 1, max_value=n - 1))
+        for _ in range(data.draw(st.integers(min_value=1, max_value=2))):
+            g.add_edge(a, b, float(data.draw(st.integers(1, 9))))
+    assert_simplify_same(g)
+
+
+def test_simplify_is_linear_on_20000_nodes():
+    """20,000 nodes in 2,000 chains of real and trivial ops, 10,000 of them
+    trivial: the splice-and-rebuild loop this replaced rebuilt the edge list
+    once per trivial node (about 2e8 edge visits here); the linear one takes
+    a fraction of a second."""
+    import time
+    g = t_graph.CompGraph(name="long")
+    nid = 0
+    for c in range(2000):
+        prev = None
+        for j in range(10):
+            op = "dot_general" if j % 2 == 0 else TRIVIAL_OPS[(c + j) % 4]
+            g.add_node(_node(nid, op, flops=1.0 if op == "dot_general" else 0.0,
+                             is_grad_producer=j == 8))
+            if prev is not None:
+                g.add_edge(prev, nid, 4.0)
+            prev = nid
+            nid += 1
+    assert len(g.nodes) == 20_000
+    t0 = time.perf_counter()
+    g.simplify()
+    took = time.perf_counter() - t0
+    assert len(g.nodes) == 10_000 and len(g.edges) == 2000 * 4
+    assert took < 3.0, took
+
+
 @pytest.mark.parametrize("n_groups", [12, 24])
 @pytest.mark.parametrize("name", GRAPHS)
 def test_partition_and_grouping_same(name, n_groups):
@@ -246,6 +373,11 @@ def test_h100_nodes_topology():
     assert topo.m == 2 and topo.total_devices == 16
     assert all(g.gpu_type == "H100" and g.intra_bw == 450e9 for g in topo.groups)
     assert topo.nominal_bw(0, 1) == 50e9
+    # NVLink and NDR are not TCP: the priors tpu_pods takes, not the TCP fits
+    assert (topo.coll_eff_cross, topo.coll_eff_intra, topo.p2p_eff) == (0.8, 0.9, 0.9)
+    tpu = r_device.tpu_pods()
+    assert (topo.coll_eff_cross, topo.coll_eff_intra, topo.p2p_eff) == \
+        (tpu.coll_eff_cross, tpu.coll_eff_intra, tpu.p2p_eff)
     assert t_device.peak_flops("H100") == 989e12
     assert topo.groups[0].flops == 989e12 * t_device.default_util("H100")
     assert set(r_device.GPU_PEAKS) < set(t_device.GPU_PEAKS)

@@ -131,6 +131,11 @@ def test_port_imports_neither_jax_nor_repro():
             "core/fingerprint.py", "core/sfb.py", "core/mcts.py", "core/tag.py",
             "core/plan.py", "core/torch_export.py", "exec/__init__.py", "exec/stages.py",
             "exec/schedule.py", "obs/__init__.py", "obs/spans.py"} <= scanned
+    # the pipeline: the verifier, the sync primitives, the engine and its launcher
+    assert {"verify/__init__.py", "verify/diagnostics.py", "verify/hb.py", "verify/memory.py",
+            "verify/collectives.py", "verify/placement.py", "verify/verifier.py",
+            "verify/mutate.py", "parallel/sfb_dense.py", "exec/engine.py",
+            "exec/model_split.py", "launch/mesh.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

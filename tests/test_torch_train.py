@@ -20,6 +20,7 @@ Mamba runs at sequence 64 in chunks of 32: at the model's initial step sizes
 ``repro``'s ``ssd_chunked`` keeps finite gradients only while a chunk's
 decay stays under about 88 (see test_torch_ssm.py).
 """
+import argparse
 import functools
 import shutil
 
@@ -320,14 +321,44 @@ def test_train_cli_on_cpu_learns_and_records_telemetry(tmp_path, capsys):
     assert recs[0].meta["arch"] == "qwen2-1.5b"
 
 
-@pytest.mark.parametrize("flag", sorted(ttrain.UNPORTED_FLAGS))
+@pytest.mark.parametrize("flag", ["--engine", "--run-id", "--scan-unroll", "--spool-dir",
+                                  "--trace-dir", "--xla-profile"])
 def test_train_cli_refuses_unported_flags(flag):
-    argv = ["--smoke", "--device", "cpu", flag]
-    if "action" not in ttrain.UNPORTED_FLAGS[flag][0]:
-        argv.append("1")
-    item = ttrain.UNPORTED_FLAGS[flag][1].split(",")[0]
-    with pytest.raises(NotImplementedError, match=rf"{flag} .*ROADMAP queue 1, item {item}"):
+    """The flags of ``repro``'s launcher that the port does not run yet are
+    refused, naming the ROADMAP item (queue 1) that brings them: the compiled
+    engine (``--engine scan``, ``--scan-unroll``) and observability."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "0", flag]
+    if flag == "--engine":
+        argv.append("scan")
+        item = ttrain.SCAN_ITEM
+    else:
+        if "action" not in ttrain.UNPORTED_FLAGS[flag][0]:
+            argv.append("1")
+        item = ttrain.UNPORTED_FLAGS[flag][1]
+    assert item.split(",")[0] in ("1.3", "1.6")
+    with pytest.raises(NotImplementedError,
+                       match=rf"{flag} .*ROADMAP queue 1, item {item.split(',')[0]}"):
         ttrain.main(argv)
+
+
+@pytest.mark.parametrize("flag,value", [("--n-chunks", "3"), ("--engine", "eager")])
+def test_train_cli_accepts_pipeline_flags(flag, value, capsys):
+    """The pipeline slice's flags: the launcher accepts them, and
+    ``run_pipeline`` runs what they ask for. ``--n-chunks 3`` under the
+    interleaved schedule gives 3 virtual stages on each of 2 stages (the
+    ``x2x3v`` log tag); ``--engine eager`` is the engine that runs."""
+    ttrain.main(["--smoke", "--device", "cpu", "--steps", "0", flag, value])
+    assert "done: 1 steps" in capsys.readouterr().out
+    cfg = ttrain.get_reduced("qwen2-1.5b").replace(dtype="float32", num_layers=6)
+    args = argparse.Namespace(
+        arch="qwen2-1.5b", batch=8, seq=16, lr=1e-3, seed=0, steps=1, log_every=1, ckpt_dir="",
+        ckpt_every=0, resume=False, pipeline="interleaved", n_micro=4, n_chunks=2,
+        telemetry_dir="", engine="eager")
+    setattr(args, flag[2:].replace("-", "_"), int(value) if flag == "--n-chunks" else value)
+    losses = ttrain.run_pipeline(args, cfg, _pipe_plan().stage_plan, [CPU, CPU])
+    tag = "x2x3v" if flag == "--n-chunks" else "x2x2v"
+    assert f"[pipeline interleaved {tag}]" in capsys.readouterr().out
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 def test_train_cli_needs_a_card_unless_asked_for_cpu():
@@ -376,9 +407,13 @@ def _pipe_plan():
 
 
 @pytest.mark.parametrize("mode", ["auto", "gpipe", "1f1b", "interleaved", "zb"])
-def test_pipelined_plan_raises_where_it_has_the_devices(mode):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 1\.5"):
-        ttrain.resolve_pipeline(_pipe_plan(), mode, [CPU, CPU])
+def test_pipelined_plan_runs_where_it_has_the_devices(mode, capsys):
+    """Where the run has as many devices as stages, ``resolve_pipeline``
+    returns the ``StagePlan`` to execute and says so."""
+    plan = _pipe_plan()
+    assert ttrain.resolve_pipeline(plan, mode, [CPU, CPU]) is plan.stage_plan
+    sched = plan.stage_plan.schedule if mode == "auto" else mode
+    assert f"executing 2 stages (schedule={sched}" in capsys.readouterr().out
 
 
 def test_pipelined_plan_falls_back_without_the_devices(capsys):
@@ -390,7 +425,7 @@ def test_pipelined_plan_falls_back_without_the_devices(capsys):
 
 
 def test_engine_scan_still_raises():
-    with pytest.raises(NotImplementedError, match=r"--engine .*ROADMAP queue 1, item 1\.5"):
+    with pytest.raises(NotImplementedError, match=r"--engine .*ROADMAP queue 1, item 1\.3"):
         ttrain.main(["--smoke", "--device", "cpu", "--tag-search", "--engine", "scan"])
 
 
