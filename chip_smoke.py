@@ -53,21 +53,32 @@ Phases, each printed on lines of its own and each fatal when it fails:
            Both full-width graphs are then searched as the launcher searches
            the reduced one: ``simplify``, ``partition`` into 24 groups and
            24 MCTS playouts over ``h100_nodes()``, each step timed.
-9. pipeline the eager pipeline engine, every kernel count at 0 just before
-           it. A gradient gate at full width: qwen2-1.5b at d_model 1536
+9. dp      single-mesh data parallelism, every kernel count at 0 just before
+           it: full-width qwen2-1.5b and mamba2-130m at 4 layers in f32,
+           batch 8 x 128, the gradient of ``make_grad_step`` and one
+           ``make_train_step`` under ``baseline_rules(make_host_mesh([cuda:0]
+           * k))`` for k = 2 and 4, and at batch 6 over 4 (replicated),
+           against one device's, 1e-4; then ``generate`` over ``[cuda:0] *
+           2`` (rows split and replicated) against one device's tokens.
+10. pipeline both pipeline engines, every kernel count at 0 just before
+           them. A gradient gate at full width: qwen2-1.5b at d_model 1536
            and 4 layers in f32, batch 8 x 128, all four schedules on
            ``[cuda:0, cuda:0]`` and AR, PS and SFB with 2-way stage data
-           parallelism on ``[cuda:0] * 4`` under 1f1b and zb, each against
-           the single-device gradient on the card. Then a user's run:
-           ``run_pipeline`` on full-width, full-depth qwen2-1.5b in bf16 at
-           batch 8 x 512, ``n_micro`` 4, 3 steps, with the 2-stage plan of
-           ``plan_deployment`` and with a hand-built 2-stage plan; each
-           step's time, events and stash come from the engine's telemetry
-           records. Each pipeline is then built again and takes one train
-           step without per-event synchronization, timed and profiled. On
-           one card this checks the schedule and the gradients and measures
-           the engine's overhead, not overlap.
-10. kernels one JSON line with every kernel's launches, error and times.
+           parallelism on ``[cuda:0] * 4`` under 1f1b and zb: the eager
+           engine against the single-device gradient on the card, the
+           compiled engine (its loops CUDA graphs, 1 and ``n_micro``
+           microbatch bodies a graph) against the eager engine, with its
+           ``peak_stash`` and event count. Then a user's run, once with each
+           engine: ``run_pipeline`` on full-width, full-depth qwen2-1.5b in
+           bf16 at batch 8 x 512, ``n_micro`` 4, 3 steps, with the 2-stage
+           plan of ``plan_deployment`` and with a hand-built 2-stage plan;
+           each step's time, events and stash come from the engine's
+           telemetry records. Each pipeline is then built again and takes two
+           train steps without per-event synchronization (the first captures
+           the compiled engine's graphs), timed, and one profiled. On one card
+           this checks the schedule and the gradients and measures the
+           engines' overhead, not overlap.
+11. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -134,6 +145,12 @@ PR15_QWEN_SIMPLIFY_S, PR15_MAMBA_CUT_S = 59.28, 1500
 # depth); the gate's error is max |a - b| / max |b| a leaf, the loss relative
 PIPE_GATE_LAYERS, PIPE_GATE_BATCH, PIPE_GATE_SEQ, PIPE_GATE_TOL = 4, 8, 128, 1e-4
 PIPE_RUN_BATCH, PIPE_RUN_SEQ, PIPE_RUN_MICRO, PIPE_RUN_STEPS = 8, 512, 4, 3
+# dp phase: the gradient gate (f32, full width, 4 layers, TF32 off), each
+# case (positions of [cuda:0] * k on the "data" axis, batch rows): split,
+# split, replicated; then generate on [cuda:0] * 2, rows split and replicated
+DP_LAYERS, DP_SEQ, DP_TOL = 4, 128, 1e-4
+DP_CASES = ((2, 8), (4, 8), (4, 6))
+DP_SERVE_ROWS, DP_SERVE_PROMPT, DP_SERVE_GEN = (4, 3), 16, 8
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
 SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
@@ -573,7 +590,7 @@ def phase_serve(arch: str, seed: int) -> dict:
     prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
                                                    (SERVE_BATCH, SERVE_PROMPT[arch]))
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
-    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"))
+    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"), None)
     mixers = (f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_head_dim}, d_state {cfg.ssm_state}"
               if mixer == "M" else f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
     log("serve", f"{arch} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -676,8 +693,8 @@ def profile_window(fn, top: int = 8) -> dict:
 def phase_profile(cfg, params, tokens, decode_steps: int = 8):
     from repro_torch.launch import steps
     from repro_torch.models.model import init_cache
-    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"))
-    serve_step = steps.make_serve_step(cfg)
+    prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"), None)
+    serve_step = steps.make_serve_step(cfg, None)
     B, S = tokens.shape
     cache = init_cache(cfg, B, S + decode_steps, tokens.device)
 
@@ -802,6 +819,9 @@ def profile_train_step(run, wall_ms: float) -> str:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if e.device_type.name == "CUDA" and not e.name.startswith("train/")]
+    host = [e.name for e in prof.events() if e.device_type.name == "CPU"]
+    replays = sum(n == "cudaGraphLaunch" for n in host)
+    host_launches = sum(n.startswith(("cudaLaunchKernel", "cuLaunchKernel")) for n in host)
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -814,7 +834,8 @@ def profile_train_step(run, wall_ms: float) -> str:
     parts = [("GEMM", gemm), ("attention softmax", softmax), ("optimizer and clip", opt_ms),
              ("elementwise and other", other)]
     return (f"wall {wall_ms:.3f} ms without the profiler; kernel time {busy:.3f} ms in "
-            f"{len(kernels)} launches, busy {busy / wall_ms:.1%}; " + ", ".join(
+            f"{len(kernels)} kernels on the device ({host_launches} launched from the host, "
+            f"{replays} CUDA graph replays), busy {busy / wall_ms:.1%}; " + ", ".join(
                 f"{n} {ms:.3f} ms ({ms / wall_ms:.1%})" for n, ms in parts) +
             f", idle {idle:.3f} ms ({idle / wall_ms:.1%})")
 
@@ -849,7 +870,7 @@ def phase_train(arch: str, seed: int):
     opt = AdamW(lr=TRAIN_LR)
     opt_state = opt.init(params)
     options = StepOptions(loss_chunk=TRAIN_LOSS_CHUNK, remat_policy="full")
-    step_fn = make_train_step(cfg, opt, options)
+    step_fn = make_train_step(cfg, opt, None, options)
     ds = SyntheticDataset(cfg.vocab_size, S, B, seed=seed)
     t0 = time.perf_counter()
     batches = [ds.device_batch(i, dev) for i in range(TRAIN_STEPS + 1)]
@@ -956,7 +977,7 @@ def train_parity(arch: str, seed: int):
     ds = SyntheticDataset(cfg.vocab_size, TRAIN_PARITY_SEQ, TRAIN_PARITY_BATCH, seed=seed + 1)
     opt = AdamW(lr=TRAIN_LR)
     options = StepOptions(loss_chunk=TRAIN_PARITY_CHUNK)
-    step = make_train_step(cfg, opt, options)
+    step = make_train_step(cfg, opt, None, options)
     out = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -1184,6 +1205,90 @@ def plan_tag_search(smi: str):
     torch.cuda.empty_cache()
 
 
+def phase_dp(seed: int, smi: str):
+    """Single-mesh data parallelism on one card, ``[cuda:0] * k`` standing
+    for k devices of the host mesh: the gradient of ``make_grad_step`` (what
+    ``make_train_step`` runs before clipping and AdamW) under
+    ``baseline_rules(make_host_mesh([cuda:0] * k))`` against one device's,
+    and one ``make_train_step`` of each, loss and gradient norm; full-width
+    qwen2-1.5b and mamba2-130m at 4 layers, f32. Then ``generate`` over
+    ``[cuda:0] * 2`` against one device's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adam import AdamW, leaves
+    dev = torch.device("cuda", 0)
+    opt = AdamW(lr=TRAIN_LR)
+    for arch in (QWEN, MAMBA):
+        cfg = get_config(arch).replace(dtype="float32", num_layers=DP_LAYERS)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        rng = np.random.default_rng(seed)
+        rows_max = max(r for _, r in DP_CASES)
+        full = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows_max, DP_SEQ)),
+                                   device=dev) for k in ("tokens", "labels")}
+        lines, worst = [], 0.0
+        for n, rows in DP_CASES:
+            batch = {k: v[:rows] for k, v in full.items()}
+            rules = steps.baseline_rules(mesh_mod.make_host_mesh([dev] * n))
+            t0 = time.perf_counter()
+            l1, _, g1 = steps.make_grad_step(cfg, None)(params, batch)
+            ln, _, gn = steps.make_grad_step(cfg, rules)(params, batch)
+            torch.cuda.synchronize(dev)
+            took = time.perf_counter() - t0
+            g_err = max(_rel(a, b) for a, b in zip(leaves(gn), leaves(g1), strict=True))
+            l_err = abs(float(ln) - float(l1)) / abs(float(l1))
+            finite = all(bool(torch.isfinite(g).all()) for g in leaves(gn))
+            del g1, gn
+            m = {}
+            for key, r in (("one", None), ("dp", rules)):
+                p = _to(params, dev)
+                _, _, m[key] = steps.make_train_step(cfg, opt, r)(p, opt.init(p), 0, batch)
+                del p
+            sl_err = abs(float(m["dp"]["loss"]) - float(m["one"]["loss"])) / abs(
+                float(m["one"]["loss"]))
+            gn_err = abs(float(m["dp"]["grad_norm"]) - float(m["one"]["grad_norm"])) / float(
+                m["one"]["grad_norm"])
+            worst = max(worst, g_err, l_err, sl_err, gn_err)
+            ok = finite and max(g_err, l_err, sl_err, gn_err) <= DP_TOL
+            split = "split" if rows % n == 0 else "replicated"
+            lines.append(f"[cuda:0] x {n}, batch {rows} x {DP_SEQ} ({split}): loss rel "
+                         f"{l_err:.3g}, gradients max rel {g_err:.3g}; train step loss rel "
+                         f"{sl_err:.3g}, grad_norm rel {gn_err:.3g}; {took:.3f} s "
+                         f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                log("dp", f"{arch}: " + "; ".join(lines))
+                raise RuntimeError(f"{arch} data parallel over {n}, batch {rows}: beyond "
+                                   f"{DP_TOL:g} of one device")
+        for t in leaves(params):
+            t.requires_grad_(False)             # the one-device step set it in place
+        log("dp", f"gradient gate, {arch} full width (d_model {cfg.d_model}), {cfg.num_layers} "
+                  f"layers, {cfg.dtype}, TF32 off, make_grad_step and make_train_step under "
+                  f"baseline_rules(make_host_mesh([cuda:0] * k)) against one device: "
+                  + "; ".join(lines) + f"; worst {worst:.3g} (tol {DP_TOL:g}, max |a - b| / "
+                  f"max |b| a leaf; loss and grad_norm relative); {smi}")
+        rules = steps.baseline_rules(mesh_mod.make_host_mesh([dev] * 2))
+        served = []
+        for rows in DP_SERVE_ROWS:
+            prompts = rng.integers(0, cfg.vocab_size, (rows, DP_SERVE_PROMPT))
+            one = generate(cfg, params, prompts, DP_SERVE_GEN)
+            stats: dict = {}
+            two = generate(cfg, params, prompts, DP_SERVE_GEN, rules, stats=stats)
+            same = two.shape == one.shape and torch.equal(two, one)
+            served.append(f"{rows} prompts of {DP_SERVE_PROMPT}: {DP_SERVE_GEN} tokens each, "
+                          f"{'equal' if same else 'DIFFERENT'} (decode "
+                          f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step)")
+            if not same:
+                raise RuntimeError(f"{arch}: generate over [cuda:0] * 2 gave other tokens "
+                                   f"than one device: {two.tolist()} vs {one.tolist()}")
+        log("dp", f"serve {arch}, {cfg.num_layers} layers, {cfg.dtype}: generate under "
+                  f"baseline_rules(make_host_mesh([cuda:0] * 2)) against one device: "
+                  + "; ".join(served) + f"; {smi}")
+        del params, full
+        torch.cuda.empty_cache()
+
+
 def _two_stage_plan(sync="allreduce", n_devices=1, n_micro=4):
     """Two equal 1f1b stages, as a hand-built plan."""
     from repro_torch.exec import StagePlan, StageSpec
@@ -1193,13 +1298,19 @@ def _two_stage_plan(sync="allreduce", n_devices=1, n_micro=4):
         placement=(0, 1), n_micro=n_micro, schedule="1f1b")
 
 
+def _rel(a, b) -> float:
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
 def pipeline_gate(dev, seed: int, smi: str):
-    """The engine's loss and gradients against the single-device gradient on
-    the same device, full-width qwen2-1.5b at 4 layers in f32: every
-    schedule on 2 stages (interleaved: 2 x 2 virtual stages), and AR, PS and
-    SFB with 2-way stage data parallelism under 1f1b and zb."""
+    """Both engines' loss and gradients, full-width qwen2-1.5b at 4 layers in
+    f32: every schedule on 2 stages (interleaved: 2 x 2 virtual stages), and
+    AR, PS and SFB with 2-way stage data parallelism under 1f1b and zb. The
+    eager engine against the single-device gradient on the same device; the
+    compiled engine (its loops CUDA graphs) against the eager engine, with 1
+    and with ``n_micro`` microbatch bodies a graph."""
     from repro_torch.configs import get_config
-    from repro_torch.exec import PipelineRunner, split_model
+    from repro_torch.exec import CompiledPipelineRunner, PipelineRunner, split_model
     from repro_torch.models.model import init_params, loss_fn
     from repro_torch.optim.adam import from_leaves, leaves
     cfg = get_config(QWEN).replace(dtype="float32", num_layers=PIPE_GATE_LAYERS)
@@ -1226,13 +1337,13 @@ def pipeline_gate(dev, seed: int, smi: str):
              for sched in ("gpipe", "1f1b", "interleaved", "zb")]
     cases += [(sched, sync, 2, 2, 1)
               for sched in ("1f1b", "zb") for sync in ("allreduce", "ps", "sfb")]
-    worst, lines = 0.0, []
+    worst, scan_worst, lines, scan_lines = 0.0, 0.0, [], []
     for sched, sync, n, n_micro, V in cases:
         plan = _two_stage_plan(sync, n, n_micro)
         splits = plan.layer_splits(cfg.num_periods, n_chunks=V)
         sp, fns, keys, tied = split_model(cfg, params, 2 * V, splits=splits)
-        runner = PipelineRunner(fns, plan, [[dev] * n] * 2, schedule=sched, n_micro=n_micro,
-                                n_chunks=V, mb_keys=keys, tied_ref=tied)
+        kw = dict(schedule=sched, n_micro=n_micro, n_chunks=V, mb_keys=keys, tied_ref=tied)
+        runner = PipelineRunner(fns, plan, [[dev] * n] * 2, **kw)
         t0 = time.perf_counter()
         grads, stats = runner.step(runner.place_params(sp), batch)
         torch.cuda.synchronize(dev)
@@ -1247,8 +1358,7 @@ def pipeline_gate(dev, seed: int, smi: str):
                 if "head" in ref:
                     w["head"] = ref["head"]
             want.append(w)
-        errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-                for g, w in zip(grads, want, strict=True)
+        errs = [_rel(a, b) for g, w in zip(grads, want, strict=True)
                 for a, b in zip(leaves(g), leaves(w), strict=True) if b.numel()]
         g_err, l_err = max(errs), abs(stats.loss - ref_loss) / abs(ref_loss)
         worst = max(worst, g_err, l_err)
@@ -1261,25 +1371,57 @@ def pipeline_gate(dev, seed: int, smi: str):
             log("pipeline", "; ".join(lines))
             raise RuntimeError(f"pipeline {name}: loss {l_err:.3g} or gradients {g_err:.3g} "
                                f"beyond {PIPE_GATE_TOL:g} of the single-device step")
+        U = 2 * V
+        for unroll in sorted({1, n_micro}):
+            scan = CompiledPipelineRunner(fns, plan, [[dev] * n] * 2, unroll=unroll, **kw)
+            t0 = time.perf_counter()
+            sg, ss = scan.step(scan.place_params(sp), batch, record=True)
+            torch.cuda.synchronize(dev)
+            took = time.perf_counter() - t0
+            s_err = max(_rel(a, b) for x, y in zip(sg, grads, strict=True)
+                        for a, b in zip(leaves(x), leaves(y), strict=True) if b.numel())
+            sl_err = abs(ss.loss - stats.loss) / abs(stats.loss)
+            scan_worst = max(scan_worst, s_err, sl_err)
+            n_events = (3 if sched == "zb" else 2) * U
+            ok = (s_err <= PIPE_GATE_TOL and sl_err <= PIPE_GATE_TOL
+                  and ss.peak_stash == U * n_micro and len(ss.events) == n_events
+                  and all(e[2] == -1 for e in ss.events)
+                  and all(bool(torch.isfinite(x).all()) for g in sg for x in leaves(g)))
+            scan_lines.append(
+                f"{name}, unroll {unroll}: loss rel {sl_err:.3g}, gradients max rel "
+                f"{s_err:.3g}, peak_stash {ss.peak_stash} (U x n_micro {U * n_micro}), events "
+                f"{len(ss.events)} (want {n_events}), graphs {len(scan._graphs)}, {took:.3f} s "
+                f"with capture {'ok' if ok else 'FAILED'}")
+            if not ok:
+                log("pipeline", "scan gate: " + "; ".join(scan_lines))
+                raise RuntimeError(f"compiled engine {name}, unroll {unroll}: loss {sl_err:.3g}, "
+                                   f"gradients {s_err:.3g}, stash {ss.peak_stash} or events "
+                                   f"{len(ss.events)} off the eager engine's")
+            del sg, ss, scan
         del grads, stats, runner, sp
     log("pipeline", f"gradient gate, {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers, "
                     f"{cfg.dtype}, batch {PIPE_GATE_BATCH} x {PIPE_GATE_SEQ}, against one "
                     f"device's loss {ref_loss:.6f} ({ref_s:.3f} s): " + "; ".join(lines)
                     + f"; worst {worst:.3g} (tol {PIPE_GATE_TOL:g}, max |a - b| / max |b| a "
                       f"leaf; loss relative); {smi}")
+    log("pipeline", "scan gradient gate, the compiled engine's loops as CUDA graphs against "
+                    "the eager engine, same shapes: " + "; ".join(scan_lines)
+                    + f"; worst {scan_worst:.3g} (tol {PIPE_GATE_TOL:g}); {smi}")
+    torch.cuda.empty_cache()
 
 
 def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True):
     """``run_pipeline`` as a user runs it, full-width, full-depth qwen2-1.5b
-    in bf16, 3 steps: with ``searched``, the 2-stage plan of
-    ``plan_deployment`` (or a hand-built one where that plan has fewer than 2
-    stages) on ``[dev, dev]``, or ``[dev] * 4`` where a stage syncs by SFB;
-    otherwise a hand-built 2-stage 1f1b plan, equal halves, on ``[dev, dev]``,
-    the engine without stage data parallelism. The engine's ``StepRecord``s
-    in the telemetry directory give each step's time, events and stash.
-    Then the same pipeline, built afresh by ``build_pipeline``, takes two
-    more steps without per-event synchronization: the second is timed,
-    then one more runs under torch.profiler."""
+    in bf16, 3 steps, once with each engine: with ``searched``, the 2-stage
+    plan of ``plan_deployment`` (or a hand-built one where that plan has
+    fewer than 2 stages) on ``[dev, dev]``, or ``[dev] * 4`` where a stage
+    syncs by SFB; otherwise a hand-built 2-stage 1f1b plan, equal halves, on
+    ``[dev, dev]``, the engine without stage data parallelism. The engine's
+    ``StepRecord``s in the telemetry directory give each step's time,
+    events and stash (every event, or loop, synchronized to time it). Then
+    the same pipeline, built afresh by ``build_pipeline``, takes two more
+    steps without per-event synchronization, both timed (the first captures
+    the compiled engine's graphs), then one more under torch.profiler."""
     import argparse
     import tempfile
     from repro_torch.configs import get_config
@@ -1300,65 +1442,82 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
     # stage gets two shards a stage, all on the one card
     per_stage = 2 if any(st.sync == "sfb" for st in sp.stages) else 1
     devices = [dev] * (per_stage * sp.n_stages)
-    args = argparse.Namespace(
-        arch=QWEN, batch=PIPE_RUN_BATCH, seq=PIPE_RUN_SEQ, lr=TRAIN_LR, seed=seed,
-        steps=PIPE_RUN_STEPS, log_every=1, ckpt_dir="", ckpt_every=0, resume=False,
-        pipeline="auto", n_micro=PIPE_RUN_MICRO, n_chunks=2, telemetry_dir="")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    with tempfile.TemporaryDirectory() as telem:
-        args.telemetry_dir = telem            # the engine records every step
-        t0 = time.perf_counter()
-        losses = train_mod.run_pipeline(args, cfg, sp, devices)
-        wall = time.perf_counter() - t0
-        lines = (Path(telem) / TELEMETRY_FILE).read_text().splitlines()
-    recs = [json.loads(line) for line in lines]
-    peak = torch.cuda.max_memory_allocated(dev)
-    times = [r["wall_time"] * 1e3 for r in recs]
-    last = recs[-1]["meta"]
-    per = {}
-    for e in last["events"]:
-        per.setdefault((e["stage"], e["kind"]), []).append((e["finish"] - e["start"]) * 1e3)
-    events = ", ".join(f"stage {s} {k} {len(v)} x {statistics.mean(v):.3f} ms (sum "
-                       f"{sum(v):.3f})" for (s, k), v in sorted(per.items()))
     ln_v = float(np.log(cfg.vocab_size))
     single = "not measured" if train_step_ms is None else f"{train_step_ms:.3f} ms"
-    log("pipeline", f"run_pipeline {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
-                    f"{cfg.dtype}, batch {PIPE_RUN_BATCH} x {PIPE_RUN_SEQ}, n_micro "
-                    f"{PIPE_RUN_MICRO}, schedule {sp.schedule}, stages {sp.n_stages} on "
-                    f"{[str(d) for d in devices]}, sync {[s.sync for s in sp.stages]}, layers "
-                    f"{sp.layer_splits(cfg.num_periods)}; plan {source}; "
-                    f"losses {', '.join(f'{x:.4f}' for x in losses)} (ln V {ln_v:.4f}); "
-                    f"engine ms a step (runner.step, every event synchronized to time it) "
-                    f"{', '.join(f'{t:.3f}' for t in times)}; single-device train_step_ms at "
-                    f"the same batch {single} (loss_chunk {TRAIN_LOSS_CHUNK}, full "
-                    f"checkpointing); peak_stash {last['peak_stash']}; max_memory_allocated "
-                    f"{peak / 2**30:.3f} GiB; {wall:.1f} s in all; events of the last step: "
-                    f"{events}; {smi}")
-    if not (len(losses) == len(recs) == PIPE_RUN_STEPS and all(np.isfinite(losses))
-            and abs(losses[0] - ln_v) <= TRAIN_LOSS_WINDOW):
-        raise RuntimeError(f"pipeline losses {losses}: not {PIPE_RUN_STEPS} finite losses, the "
-                           f"first within {TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
-    # the whole train step (engine, clip, AdamW) without per-event
-    # synchronization, then where its time goes
-    args.telemetry_dir = ""
-    run = train_mod.build_pipeline(args, cfg, sp, devices)
-    batch = run.dataset.device_batch(0, "cpu")
-    state = [run.params_list, run.opt_state_list]
+    free = {}
+    for engine in ("eager", "scan"):
+        args = argparse.Namespace(
+            arch=QWEN, batch=PIPE_RUN_BATCH, seq=PIPE_RUN_SEQ, lr=TRAIN_LR, seed=seed,
+            steps=PIPE_RUN_STEPS, log_every=1, ckpt_dir="", ckpt_every=0, resume=False,
+            pipeline="auto", n_micro=PIPE_RUN_MICRO, n_chunks=2, telemetry_dir="",
+            engine=engine, scan_unroll=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with tempfile.TemporaryDirectory() as telem:
+            args.telemetry_dir = telem            # the engine records every step
+            t0 = time.perf_counter()
+            losses = train_mod.run_pipeline(args, cfg, sp, devices)
+            wall = time.perf_counter() - t0
+            lines = (Path(telem) / TELEMETRY_FILE).read_text().splitlines()
+        recs = [json.loads(line) for line in lines]
+        peak = torch.cuda.max_memory_allocated(dev)
+        times = [r["wall_time"] * 1e3 for r in recs]
+        last = recs[-1]["meta"]
+        per = {}
+        for e in last["events"]:
+            per.setdefault((e["stage"], e["kind"]), []).append((e["finish"] - e["start"]) * 1e3)
+        events = ", ".join(f"stage {s} {k} {len(v)} x {statistics.mean(v):.3f} ms (sum "
+                           f"{sum(v):.3f})" for (s, k), v in sorted(per.items()))
+        log("pipeline", f"run_pipeline --engine {engine}, {cfg.name}, {cfg.num_layers} layers, "
+                        f"d_model {cfg.d_model}, {cfg.dtype}, batch {PIPE_RUN_BATCH} x "
+                        f"{PIPE_RUN_SEQ}, n_micro {PIPE_RUN_MICRO}, schedule {sp.schedule}, stages "
+                        f"{sp.n_stages} on {[str(d) for d in devices]}, sync "
+                        f"{[s.sync for s in sp.stages]}, layers "
+                        f"{sp.layer_splits(cfg.num_periods)}; plan {source}; "
+                        f"losses {', '.join(f'{x:.4f}' for x in losses)} (ln V {ln_v:.4f}); "
+                        f"engine ms a step (runner.step, every event or loop synchronized to "
+                        f"time it; the scan engine's first step captures its graphs) "
+                        f"{', '.join(f'{t:.3f}' for t in times)}; single-device train_step_ms "
+                        f"at the same batch {single} (loss_chunk {TRAIN_LOSS_CHUNK}, full "
+                        f"checkpointing); peak_stash {last['peak_stash']}; max_memory_allocated "
+                        f"{peak / 2**30:.3f} GiB; {wall:.1f} s in all; events of the last step: "
+                        f"{events}; {smi}")
+        if not (len(losses) == len(recs) == PIPE_RUN_STEPS and all(np.isfinite(losses))
+                and abs(losses[0] - ln_v) <= TRAIN_LOSS_WINDOW):
+            raise RuntimeError(f"pipeline losses {losses}: not {PIPE_RUN_STEPS} finite losses, "
+                               f"the first within {TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
+        # the whole train step (engine, clip, AdamW) without per-event
+        # synchronization, then where its time goes
+        args.telemetry_dir = ""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = train_mod.build_pipeline(args, cfg, sp, devices)
+        batch = run.dataset.device_batch(0, "cpu")
+        state = [run.params_list, run.opt_state_list]
 
-    def step():
-        state[0], state[1], _ = run.step_fn(state[0], state[1], 0, batch)
+        def step():
+            state[0], state[1], _ = run.step_fn(state[0], state[1], 0, batch)
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    free_ms = (time.perf_counter() - t0) * 1e3
-    log("pipeline", f"{source}: one train step without per-event synchronization {free_ms:.3f} "
-                    f"ms; profile of one such step: {profile_train_step(step, free_ms)}; {smi}")
-    del run, state
-    torch.cuda.empty_cache()
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        free[engine] = ms[1]
+        prof = profile_train_step(step, ms[1])
+        peak = torch.cuda.max_memory_allocated(dev)
+        log("pipeline", f"{source}, --engine {engine}: first train step {ms[0]:.3f} ms"
+                        f"{' (captures the graphs)' if engine == 'scan' else ''}; "
+                        f"pipeline_step_ms {ms[1]:.3f} (a train step without per-event "
+                        f"synchronization); peak memory {peak / 2**30:.3f} GiB; profile of one "
+                        f"such step: {prof}; {smi}")
+        del run, state
+        torch.cuda.empty_cache()
+    log("pipeline", f"{source}: pipeline_step_ms eager {free['eager']:.3f}, scan "
+                    f"{free['scan']:.3f} ({free['eager'] / free['scan']:.3f}x); single-device "
+                    f"train_step_ms {single}; {smi}")
 
 
 def _to(tree, dev):
@@ -1404,6 +1563,14 @@ def main(argv=None) -> int:
         plan_tag_search(smi)
         for arch in (QWEN, MAMBA):
             plan_search(arch, graphs.pop(arch), smi)
+        phase = "dp"
+        reset_counts()
+        phase_dp(args.seed, smi)
+        counts = read_counts()
+        log("dp", f"kernel launches over the phase: {counts} (none expected: data parallelism "
+                  f"trains and decodes through the models' own routes)")
+        if any(counts.values()):
+            raise RuntimeError(f"the dp path launched a forward-only kernel: {counts}")
         phase = "pipeline"
         reset_counts()
         dev = torch.device("cuda", 0)

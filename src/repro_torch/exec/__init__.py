@@ -1,9 +1,11 @@
 """Pipeline execution of the port: the stage partitioner (``stages``), the
 four microbatch schedules with their timeline simulator (``schedule``), the
 model adapter that cuts an LM into stage functions (``model_split``) and the
-eager engine that runs a ``StagePlan`` as a train step (``engine``)."""
+eager and compiled engines that run a ``StagePlan`` as a train step
+(``engine``)."""
 from repro_torch.exec.engine import (
-    PipelineRunner, StepStats, split_microbatches, stack_microbatches)
+    CompiledPipelineRunner, PipelineRunner, StepStats, split_microbatches,
+    stack_microbatches)
 from repro_torch.exec.model_split import split_model
 from repro_torch.exec.schedule import (
     SCHEDULES, Timeline, flatten_schedule, gpipe_schedule,
@@ -16,7 +18,7 @@ from repro_torch.exec.stages import (
     vote_schedule)
 
 __all__ = [
-    "PipelineRunner", "StepStats", "split_microbatches", "stack_microbatches",
+    "CompiledPipelineRunner", "PipelineRunner", "StepStats", "split_microbatches", "stack_microbatches",
     "split_model",
     "SCHEDULES", "Timeline", "flatten_schedule", "gpipe_schedule",
     "interleaved_1f1b_schedule", "make_schedule", "max_feasible_micro",

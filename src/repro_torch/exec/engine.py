@@ -76,6 +76,8 @@ def _unflat(like, flat: list):
 def _rebuild(node, it):
     # a module-level function: a recursive closure would hold the leaves in
     # a reference cycle, freed only when the garbage collector runs
+    if node is None:
+        return None
     if isinstance(node, dict):
         return {k: _rebuild(node[k], it) for k in sorted(node)}
     if isinstance(node, (tuple, list)):
@@ -83,9 +85,20 @@ def _rebuild(node, it):
     return next(it)
 
 
-def _batch_split(x, ndev: int) -> bool:
-    """``repro``'s ``_batch_spec``: shard dim 0 where ``ndev`` divides it."""
-    return x.dim() >= 1 and x.shape[0] > 0 and x.shape[0] % ndev == 0
+def _batch_split(x, ndev: int, dim: int = 0) -> bool:
+    """``repro``'s ``_batch_spec``: shard the rows (dim 0, or dim 1 of a
+    stacked ``[n_micro, rows, ...]`` value) where ``ndev`` divides them."""
+    return x.dim() > dim and x.shape[dim] > 0 and x.shape[dim] % ndev == 0
+
+
+def _stack(trees: list):
+    """Trees of one structure as one tree, each leaf stacked on a new dim 0."""
+    return _unflat(trees[0], [torch.stack(parts) for parts in zip(*map(_flat, trees))])
+
+
+def _at(tree, j: int):
+    """Row ``j`` of every leaf of a stacked tree (views)."""
+    return _map(lambda t: t[j], tree)
 
 
 def stack_microbatches(batch: dict, n_micro: int) -> dict:
@@ -199,23 +212,25 @@ class PipelineRunner:
     def place_params(self, params_list) -> list:
         return [self.place(self.phys(u), p) for u, p in enumerate(params_list)]
 
-    def _scatter(self, s: int, tree) -> list:
+    def _scatter(self, s: int, tree, dim: int = 0) -> list:
         """A batch-leading tree as stage ``s``'s shards: one tree a device,
-        dim 0 split where the device count divides it, else replicated."""
+        the rows (dim ``dim``) split where the device count divides them,
+        else replicated."""
         devs = self.device_sets[s]
         n = len(devs)
 
         def shard(t, i):
-            if n > 1 and _batch_split(t, n):
-                w = t.shape[0] // n
-                t = t[i * w:(i + 1) * w]
+            if n > 1 and _batch_split(t, n, dim):
+                w = t.shape[dim] // n
+                t = t.narrow(dim, i * w, w)
             return t.to(devs[i])
         return [_map(lambda t, i=i: shard(t, i), tree) for i in range(n)]
 
-    def _gather(self, s: int, shards: list, full_rows: int):
+    def _gather(self, s: int, shards: list, full_rows: int, dim: int = 0):
         """Stage ``s``'s shards as one tree on its first device: split
-        leaves concatenated in shard order, replicated ones from shard 0.
-        ``full_rows`` is the microbatch's dim 0, which decided the split."""
+        leaves concatenated on ``dim`` in shard order, replicated ones from
+        shard 0. ``full_rows`` is the microbatch's row count, which decided
+        the split."""
         n = len(shards)
         if n == 1:
             return shards[0]
@@ -224,17 +239,17 @@ class PipelineRunner:
         flat = [_flat(t) for t in shards]
         out = []
         for parts in zip(*flat):
-            if split and parts[0].dim() >= 1:
-                out.append(torch.cat([p.to(dev) for p in parts]))
+            if split and parts[0].dim() > dim:
+                out.append(torch.cat([p.to(dev) for p in parts], dim=dim))
             else:
                 out.append(parts[0].to(dev))
         return _unflat(shards[0], out)
 
-    def _move(self, s_from: int, s_to: int, shards: list, rows: int) -> list:
+    def _move(self, s_from: int, s_to: int, shards: list, rows: int, dim: int = 0) -> list:
         """Reshard a batch-leading value from one physical stage to another."""
         if self.device_sets[s_from] == self.device_sets[s_to]:
             return shards
-        return self._scatter(s_to, self._gather(s_from, shards, rows))
+        return self._scatter(s_to, self._gather(s_from, shards, rows, dim), dim)
 
     def _mb_for(self, u: int, mb: dict) -> dict:
         if self.mb_keys is None:
@@ -451,3 +466,268 @@ class PipelineRunner:
                       n_stages=self.S, n_chunks=self.V, n_micro=self.n_micro,
                       loss=stats.loss, peak_stash=stats.peak_stash, events=ev_meta))
         self.store.append(rec)
+
+
+class _Graph:
+    """One captured loop of the compiled engine: a CUDA graph of ``body`` on
+    static copies of its inputs. ``fixed`` inputs (parameters, the loss
+    seed) are read where they lie; ``fresh`` ones (microbatches, boundary
+    values) are copied into static buffers before every replay. Outputs are
+    the graph's own buffers: the caller copies them out before the next
+    replay. The body is passed at each call, never kept, so that no
+    reference cycle holds the runner."""
+
+    def __init__(self, device: torch.device, pool):
+        self.device, self.pool = device, pool
+        self.graph = self.static_in = self.out = None
+
+    def run(self, body, fixed, fresh):
+        if self.graph is None:
+            self._capture(body, fixed, fresh)
+        for st, x in zip(self.static_in, _flat(fixed) + _flat(fresh), strict=True):
+            if (st.data_ptr(), st.shape, st.stride()) != (x.data_ptr(), x.shape, x.stride()):
+                st.copy_(x)
+        self.graph.replay()
+        return self.out
+
+    def _capture(self, body, fixed, fresh):
+        statics = [x.clone() for x in _flat(fresh)]
+        fresh_s = _unflat(fresh, statics)
+        with torch.cuda.device(self.device):
+            # warm-up on a side stream (cuBLAS handles and workspaces, the
+            # autograd engine's device thread), as PyTorch's whole-network
+            # capture recipe does; then capture into the runner's pool
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body(fixed, fresh_s)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = body(fixed, fresh_s)
+        self.graph, self.static_in, self.out = graph, _flat(fixed) + statics, out
+
+
+class CompiledPipelineRunner(PipelineRunner):
+    """The compiled engine, the port of ``repro.exec.engine.
+    CompiledPipelineRunner``: the eager engine's stage math (``_grads``),
+    run as O(U) rolled loops a step instead of O(U * n_micro) dispatched
+    events.
+
+    A virtual stage ``u`` has one forward loop over the stacked
+    ``[n_micro, rows, ...]`` microbatch axis and one backward loop that
+    accumulates the parameter gradient (under zero-bubble an activation-grad
+    ``B`` loop and a weight-grad ``W`` loop), executed in dataflow order:
+    every forward up the virtual stages, then every backward down them, the
+    backward loops in reverse microbatch order as ``lax.scan(reverse=True)``
+    runs them. A boundary moves as one stacked value. Every virtual stage
+    stashes all ``n_micro`` inputs until its backward, whatever the
+    schedule (``peak_stash == U * n_micro``, the stash of
+    ``verify.memory.engine_peak_stash(..., engine="scan")`` without its
+    boundary buffer). The gradient contract is the eager engine's: the sum
+    over microbatches ``/ n_micro``, the tied head folded back.
+    ``StepStats.events`` holds one entry a loop with ``mb == -1``: ``2U``,
+    or ``3U`` under zero-bubble.
+
+    On a CUDA device each loop is captured once, at the first step, into a
+    ``torch.cuda.CUDAGraph`` (all of a step's graphs share one memory pool,
+    captured in the order they replay) and replayed at every step after.
+    ``unroll`` microbatch bodies make one graph, replayed ``n_micro //
+    unroll`` times, with a graph for the remainder where ``unroll`` does not
+    divide ``n_micro``: at 1, capture time and graph memory stay flat in
+    ``n_micro``; at ``n_micro``, one replay a loop. On the CPU, where no
+    graph exists, the same rolled loops run uncaptured. A capture or replay
+    that fails raises: nothing falls back to the uncaptured loop or to the
+    eager engine on a card.
+
+    The parameters are read where they lie: pass the same tensors each step
+    and update them in place, as ``launch.steps.make_pipeline_train_step``'s
+    AdamW does (a new tensor is copied into the captured one). A stage whose
+    shards sit on distinct devices with a CUDA device among them is not
+    supported (ROADMAP queue 1, item 3): the shards of a stage on one card
+    run in one graph, every sync a same-device sum.
+    """
+
+    def __init__(self, *args, unroll: int = 1, **kw):
+        super().__init__(*args, **kw)
+        for s, devs in enumerate(self.device_sets):
+            if len(set(devs)) > 1 and any(d.type == "cuda" for d in devs):
+                raise NotImplementedError(
+                    f"compiled engine: stage {s} spans distinct devices "
+                    f"{[str(d) for d in devs]}; a stage's shards must share one card "
+                    f"(ROADMAP queue 1, item 3)")
+        self.unroll = max(1, int(unroll))
+        last = self.device_sets[self.phys(self.U - 1)]
+        # the last stage's backward seed, made once: a graph cannot copy
+        # from the host
+        self._seed = [torch.full((), 1.0 / len(last), dtype=torch.float32, device=d)
+                      for d in last]
+        self._graphs: dict = {}          # (u, kind, k) -> _Graph
+        self._pool = None
+
+    def _chunks(self) -> list:
+        """(first microbatch, count) of each replay, in forward order."""
+        k = min(self.unroll, self.n_micro)
+        q, r = divmod(self.n_micro, k)
+        return [(i * k, k) for i in range(q)] + ([(q * k, r)] if r else [])
+
+    def _run(self, u: int, kind: str, k: int, body, fixed, fresh):
+        dev = self.device_sets[self.phys(u)][0]
+        if dev.type != "cuda":
+            return body(fixed, fresh)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        g = self._graphs.get((u, kind, k))
+        if g is None:
+            g = self._graphs[(u, kind, k)] = _Graph(dev, self._pool)
+        return g.run(body, fixed, fresh)
+
+    # ------------------------------------------------------------ loops
+    def _fwd_loop(self, u: int, reps, cs, mbs):
+        """Virtual stage ``u``'s forward over every microbatch: per shard,
+        the stacked outputs (``(loss [M], metrics [M])`` on the last)."""
+        fn, n = self.fns[u], len(reps)
+
+        def body(k):
+            def run(fixed, fresh):
+                with torch.no_grad():
+                    return [_stack([fn(fixed[i],
+                                       None if fresh["c"] is None else _at(fresh["c"][i], j),
+                                       _at(fresh["mb"][i], j)) for j in range(k)])
+                            for i in range(n)]
+            return run
+
+        full = None
+        for m0, k in self._chunks():
+            fresh = {"c": None if cs is None else [_map(lambda t: t[m0:m0 + k], c) for c in cs],
+                     "mb": [_map(lambda t: t[m0:m0 + k], mb) for mb in mbs]}
+            out = self._run(u, "F", k, body(k), reps, fresh)
+            if full is None:
+                full = [_map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])), o) for o in out]
+            for dst, src in zip(_flat(full), _flat(out), strict=True):
+                dst[m0:m0 + k].copy_(src)
+        return full
+
+    def _bwd_loop(self, u: int, kind: str, reps, cs, mbs, douts, rows: int,
+                  want_p: bool, want_c: bool):
+        """Virtual stage ``u``'s backward over every microbatch, last first:
+        (the parameter gradient summed over microbatches, on the stage's
+        first device, or None; per shard the stacked carry gradients, or
+        None)."""
+        want_c = want_c and cs is not None
+        if not (want_p or want_c):
+            return None, None           # zb's B of stage 0: nothing to compute
+        n, last = len(reps), u == self.U - 1
+
+        def body(k):
+            def run(fixed, fresh):
+                dp_sum, dcs = None, [[] for _ in range(n)]
+                for j in reversed(range(k)):
+                    c = None if fresh["c"] is None else [_at(x, j) for x in fresh["c"]]
+                    dout = fixed["seed"] if last else [_at(x, j) for x in fresh["dout"]]
+                    dp, dc = self._grads(u, fixed["p"], c, [_at(x, j) for x in fresh["mb"]],
+                                         dout, rows, want_p, want_c)
+                    if dp is not None:
+                        dp_sum = dp if dp_sum is None else _unflat(
+                            dp, [a + b for a, b in zip(_flat(dp_sum), _flat(dp), strict=True)])
+                    for i in range(n if dc is not None else 0):
+                        dcs[i].append(dc[i])
+                return {"dp": dp_sum,
+                        "dc": [_stack(d[::-1]) for d in dcs] if want_c else None}
+            return run
+
+        fixed = {"p": reps, "seed": self._seed if last else None}
+        acc = dc_full = None
+        for m0, k in reversed(self._chunks()):
+            fresh = {"c": None if cs is None else [_map(lambda t: t[m0:m0 + k], c) for c in cs],
+                     "mb": [_map(lambda t: t[m0:m0 + k], mb) for mb in mbs],
+                     "dout": None if last else [_map(lambda t: t[m0:m0 + k], d) for d in douts]}
+            out = self._run(u, kind, k, body(k), fixed, fresh)
+            if want_p:
+                dp = _flat(out["dp"])
+                if acc is None:
+                    acc = [t.clone() for t in dp]
+                else:
+                    torch._foreach_add_(acc, dp)
+            if want_c:
+                if dc_full is None:
+                    dc_full = [_map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])), d)
+                               for d in out["dc"]]
+                for dst, src in zip(_flat(dc_full), _flat(out["dc"]), strict=True):
+                    dst[m0:m0 + k].copy_(src)
+            del out
+        return (_unflat(reps[0], acc) if want_p else None), dc_full
+
+    # ------------------------------------------------------------- step
+    def step(self, params_list, batch, *, record: bool = False) -> tuple:
+        """One pipelined train step through the rolled loops. Returns
+        ``(grads_list, StepStats)`` under the eager engine's contract."""
+        t_start = time.perf_counter()
+        S, U, M = self.S, self.U, self.n_micro
+        stacked = stack_microbatches(batch, M)
+        rows = next(iter(stacked.values())).shape[1]
+
+        params_eff = list(params_list)
+        if self.tied_ref is not None:
+            src_key, dst_key = self.tied_ref
+            head = self.place(self.phys(U - 1), params_list[0][src_key])
+            params_eff[U - 1] = dict(params_list[U - 1], **{dst_key: head})
+        reps = [[_map(lambda t, d=d: t.to(d), params_eff[u])
+                 for d in self.device_sets[self.phys(u)]] for u in range(U)]
+        mbs = [self._scatter(self.phys(u), self._mb_for(u, stacked), dim=1) for u in range(U)]
+
+        def event(kind, u, t0):
+            if record:
+                self._sync_devices(self.phys(u))
+                events.append((kind, self.phys(u), -1, time.perf_counter() - t0, u // S,
+                               t0 - t_start))
+
+        events: list = []
+        stage_in: list = [None] * U     # stacked inputs of every microbatch
+        outs = None
+        for u in range(U):
+            t0 = time.perf_counter()
+            if u > 0:
+                # one stacked transfer a boundary
+                stage_in[u] = self._move(self.phys(u - 1), self.phys(u), outs, rows, dim=1)
+            outs = self._fwd_loop(u, reps[u], stage_in[u], mbs[u])
+            event("F", u, t0)
+        losses = torch.cat([o[0].float().to(self.device_sets[self.phys(U - 1)][0])
+                            for o in outs])
+        mets = {k: torch.cat([o[1][k].float().to(losses.device) for o in outs])
+                for k in outs[0][1]}
+        del outs
+
+        grads: list = [None] * U
+        dcs = None
+        for u in reversed(range(U)):
+            t0 = time.perf_counter()
+            douts = None if u == U - 1 else self._move(self.phys(u + 1), self.phys(u), dcs,
+                                                       rows, dim=1)
+            cs, mb = stage_in[u], mbs[u]
+            if self.has_w:
+                _, dcs = self._bwd_loop(u, "B", reps[u], cs, mb, douts, rows, False, u > 0)
+                event("B", u, t0)
+                t0 = time.perf_counter()
+                grads[u], _ = self._bwd_loop(u, "W", reps[u], cs, mb, douts, rows, True, False)
+                event("W", u, t0)
+            else:
+                grads[u], dcs = self._bwd_loop(u, "B", reps[u], cs, mb, douts, rows, True,
+                                               u > 0)
+                event("B", u, t0)
+            stage_in[u] = None
+
+        grads = [_map(lambda g: g / M, g_u) for g_u in grads]
+        if self.tied_ref is not None:
+            src_key, dst_key = self.tied_ref
+            dhead = self.place(0, grads[U - 1].pop(dst_key))
+            grads[0] = dict(grads[0], **{src_key: grads[0][src_key] + dhead})
+
+        loss = float(losses.mean())
+        metrics = {k: float(v.mean()) for k, v in mets.items()}
+        stats = StepStats(loss=loss, metrics=metrics, wall_time=time.perf_counter() - t_start,
+                          events=events, peak_stash=U * M)
+        self.last_stats = stats
+        if self.store is not None:
+            self._record_telemetry(stats)
+        return grads, stats

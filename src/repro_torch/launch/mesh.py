@@ -1,21 +1,53 @@
-"""Device sets for a pipeline, the part of ``repro.launch.mesh`` that the
-pipeline path uses."""
+"""Meshes and device sets on the local host, the port of
+``repro.launch.mesh``: the data-parallel host mesh that the launchers train
+and serve over, and per-stage device slices for a pipeline. ``repro``'s
+``make_production_mesh`` and its v5e constants wait for the dry run
+(ROADMAP queue 1, item 10)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.parallel.sharding import Mesh
 
 
 def local_devices() -> list:
-    """Every local CUDA device, or the CPU where there is none."""
+    """Every local CUDA device. Raises when there is none: nothing falls back
+    to the CPU on its own; a caller that wants the CPU passes
+    ``[torch.device("cpu")] * k`` itself."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return [torch.device("cuda", i) for i in range(n)] or [torch.device("cpu")]
+    if not n:
+        raise RuntimeError("no CUDA device is available; pass a device list such as "
+                           "[torch.device('cpu')] * k to run on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def make_mesh(shape, axes, devices) -> Mesh:
+    """``devices`` (a list of ``torch.device``s, which may repeat one) laid
+    out as a mesh of ``shape`` with the axis names ``axes``."""
+    shape, devices = tuple(shape), [torch.device(d) for d in devices]
+    if int(np.prod(shape)) != len(devices):
+        raise ValueError(f"a mesh of shape {shape} needs {int(np.prod(shape))} devices, "
+                         f"got {len(devices)}")
+    arr = np.empty(len(devices), dtype=object)
+    arr[:] = devices
+    return Mesh(arr.reshape(shape), axes)
+
+
+def make_host_mesh(devices=None) -> Mesh:
+    """Every local CUDA device on one ``("data",)`` axis, or ``devices``
+    where given (``[cuda:0] * 2`` runs two positions on one card; ``[cpu] *
+    4`` four on the CPU). Raises without a card unless ``devices`` is
+    given."""
+    devices = local_devices() if devices is None else list(devices)
+    return make_mesh((len(devices),), ("data",), devices)
 
 
 def stage_device_sets(stage_plan, devices=None) -> list:
     """Per-stage device slices for an ``exec.stages.StagePlan`` on the local
     host (proportional to the topology's group sizes). ``devices`` defaults
-    to ``local_devices()``; a list may repeat a device, such as
-    ``[cuda:0] * 2``, to run every stage on one card. Raises
-    ``exec.stages.PipelineInfeasible`` when there are fewer devices than
-    stages."""
+    to ``local_devices()``, which raises without a card; a list may repeat
+    a device, such as ``[cuda:0] * 2``, to run every stage on one card.
+    Raises ``exec.stages.PipelineInfeasible`` when there are fewer devices
+    than stages."""
     return stage_plan.assign_local_devices(local_devices() if devices is None else devices)

@@ -18,39 +18,55 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.configs.shapes import InputShape
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import init_cache, init_params
+from repro_torch.optim.adam import leaves
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices):
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
-def generate(cfg, params, prompts, gen_tokens: int, stats: dict | None = None):
+def generate(cfg, params, prompts, gen_tokens: int, rules=None, stats: dict | None = None):
     """prompts: (B, P) integer tokens. Returns (B, gen_tokens) int64 on the
     parameters' device.
 
     As in ``repro.launch.serve.generate``, the prompt is stepped through the
     decode path one token at a time to build the cache; the fused prefill is
-    ``launch.steps.make_prefill_step``. When ``stats`` is given it is filled
-    with ``prefill_s``, ``decode_s`` and ``decode_steps``, each time taken
-    after the device has finished its work.
+    ``launch.steps.make_prefill_step``. Under ``rules`` whose batch axes
+    span several devices (``launch.steps.data_devices``), each device holds
+    a cache of its rows (the batch entry of ``cache_shardings``: the rows
+    are split where the device count divides B, else every device decodes
+    every row) and decodes them; the tokens are concatenated in device
+    order. When ``stats`` is given it is filled with ``prefill_s``,
+    ``decode_s`` and ``decode_steps``, each time taken after every device
+    has finished its work.
     """
     device = params["embed"].device
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)
     B, P = prompts.shape
-    cache = init_cache(cfg, B, P + gen_tokens, device)
-    step = steps_mod.make_serve_step(cfg)
+    devices = steps_mod.data_devices(cfg, rules) or [device]
+    if len(devices) > 1:
+        shape = InputShape("generate", P + gen_tokens, B, "decode")
+        spec = leaves(steps_mod.cache_shardings(cfg, shape, rules))[0].spec
+        rows = B // len(devices) if len(spec) > 1 and spec[1] is not None else B
+        cache = [init_cache(cfg, rows, P + gen_tokens, d) for d in devices]
+    else:
+        cache = init_cache(cfg, B, P + gen_tokens, device)
+    step = steps_mod.make_serve_step(cfg, rules)
 
-    _sync(device)
+    _sync(devices)
     t0 = time.perf_counter()
     pos = 0
     for i in range(P):
         nxt, cache = step(params, cache, prompts[:, i:i + 1], pos)
         pos += 1
-    _sync(device)
+    _sync(devices)
     t_prefill = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -61,7 +77,7 @@ def generate(cfg, params, prompts, gen_tokens: int, stats: dict | None = None):
         cur, cache = step(params, cache, cur, pos)
         pos += 1
     res = torch.cat(out, dim=1)
-    _sync(device)
+    _sync(devices)
     if stats is not None:
         stats.update(prefill_s=t_prefill, decode_s=time.perf_counter() - t0,
                      decode_steps=gen_tokens)
@@ -81,14 +97,17 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
+    mesh = mesh_mod.make_host_mesh(None if device.type == "cuda" else [device])
+    rules = steps_mod.baseline_rules(mesh)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}")
+    print(f"serving {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}, "
+          f"data parallel over the host mesh {mesh.shape}")
     t0 = time.perf_counter()
     stats: dict = {}
-    out = generate(cfg, params, prompts, args.gen, stats=stats)
+    out = generate(cfg, params, prompts, args.gen, rules, stats=stats)
     dt = time.perf_counter() - t0
     print(f"generated {tuple(out.shape)} tokens on {device} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s; prompt {stats['prefill_s']:.2f}s, "

@@ -7,11 +7,13 @@ Synthetic data pipeline -> train step (loss, backward, clip, AdamW) ->
 checkpoints -> metrics log. Runs on the card unless ``--device cpu``.
 ``--tag-search`` first runs the TAG strategy search on a reduced trace of
 the model over an H100 cluster (``core.device.h100_nodes``) and prints the
-lowered plan. A plan that pipelines runs through the eager pipeline engine
-(``run_pipeline``) where the run has at least as many devices as stages,
-and otherwise falls back, with a warning, to the single-device path.
-``repro``'s compiled engine and tracing flags are refused, each naming the
-ROADMAP item (queue 1) that brings it.
+lowered plan. A plan that pipelines runs through a pipeline engine
+(``run_pipeline``: ``--engine eager`` dispatches every schedule event,
+``--engine scan`` runs each stage's loops as CUDA graphs) where the run has
+at least as many devices as stages, and otherwise falls back, with a
+warning, to single-mesh data parallelism over the host mesh, which is also
+the path without ``--tag-search``. ``repro``'s tracing flags are refused,
+naming the ROADMAP item (queue 1) that brings them.
 """
 from __future__ import annotations
 
@@ -31,11 +33,9 @@ from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim.adam import AdamW
 
-SCAN_ITEM = "1.3, the compiled engine"
 OBS_ITEM = "1.6, observability"
 # flag -> (argparse keywords, the ROADMAP item, queue 1, that brings it)
 UNPORTED_FLAGS = {
-    "--scan-unroll": ({}, SCAN_ITEM),
     "--trace-dir": ({}, OBS_ITEM),
     "--spool-dir": ({}, OBS_ITEM),
     "--run-id": ({}, OBS_ITEM),
@@ -46,9 +46,9 @@ UNPORTED_FLAGS = {
 def resolve_pipeline(plan, mode: str, devices=None):
     """Decide whether a lowered TAG plan's PIPE stages can really run on
     ``devices`` (default: every local device). Returns the ``StagePlan`` to
-    execute, or None for the single-device path, emitting an explicit log
-    line either way, so that a strategy with PIPE actions is never silently
-    degraded."""
+    execute, or None for the single-mesh data-parallel path, emitting an
+    explicit log line either way, so that a strategy with PIPE actions is
+    never silently degraded."""
     sp = plan.stage_plan
     if sp is None:
         if plan.summary.get("options", {}).get("PIPE"):
@@ -98,14 +98,13 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
     schedule, ``n_micro`` and ``n_chunks``, the launch preflight, the stage
     parameters and optimizer states (or those of the per-stage checkpoint
     resumed), the runner and its train step."""
-    from repro_torch.exec import PipelineRunner, split_model
+    from repro_torch.exec import CompiledPipelineRunner, PipelineRunner, split_model
     from repro_torch.exec.schedule import make_schedule
     from repro_torch.verify import PlanVerificationError, verify_preflight
 
     engine = getattr(args, "engine", None) or "eager"
-    if engine != "eager":
-        raise NotImplementedError(
-            f"--engine {engine} is not ported yet (ROADMAP queue 1, item {SCAN_ITEM})")
+    if engine not in ("eager", "scan"):
+        raise ValueError(f"unknown pipeline engine {engine!r} (use eager or scan)")
     schedule = stage_plan.schedule if args.pipeline == "auto" else args.pipeline
     n_chunks = max(2, args.n_chunks) if schedule == "interleaved" else 1
     n_micro = max(1, args.n_micro)
@@ -148,11 +147,18 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
     if args.telemetry_dir:
         from repro_torch.runtime.telemetry import MeasurementStore
         store = MeasurementStore(args.telemetry_dir)
-    runner = PipelineRunner(
-        fns, stage_plan, device_sets, schedule=schedule, n_micro=n_micro,
-        n_chunks=n_chunks, mb_keys=mb_keys, tied_ref=tied, store=store,
-        meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
-              "launcher": "train", "engine": engine, "run_id": f"train-{args.arch}"})
+    kw = dict(schedule=schedule, n_micro=n_micro, n_chunks=n_chunks, mb_keys=mb_keys,
+              tied_ref=tied, store=store,
+              meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
+                    "launcher": "train", "engine": engine, "run_id": f"train-{args.arch}"})
+    if engine == "scan":
+        unroll = max(1, getattr(args, "scan_unroll", 1))
+        runner = CompiledPipelineRunner(fns, stage_plan, device_sets, unroll=unroll, **kw)
+        how = "CUDA graphs" if dev0.type == "cuda" else f"uncaptured on {dev0.type}"
+        print(f"pipeline engine: scan ({how}, unroll={unroll})", flush=True)
+    else:
+        runner = PipelineRunner(fns, stage_plan, device_sets, **kw)
+        print("pipeline engine: eager (one dispatch an event)", flush=True)
 
     opt = AdamW(lr=args.lr)
     params_list = runner.place_params(stage_params)
@@ -166,7 +172,7 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
             raise ValueError(
                 f"checkpoint in {args.ckpt_dir} is not a {n_virtual}-stage pipeline "
                 f"checkpoint — resume it with the matching stage map and schedule "
-                f"(or without --tag-search for single-device checkpoints)")
+                f"(or without --tag-search for single-mesh checkpoints)")
         params_list = [runner.place(runner.phys(u), tree["params"][k]) for u, k in enumerate(keys)]
         opt_state_list = [runner.place(runner.phys(u), tree["opt_state"][k])
                           for u, k in enumerate(keys)]
@@ -179,7 +185,8 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
 
 
 def run_pipeline(args, cfg, stage_plan, devices=None):
-    """Train through the eager pipeline engine (``exec.engine``) on
+    """Train through a pipeline engine (``exec.engine``; ``args.engine``,
+    eager by default, and ``args.scan_unroll``) on
     ``devices`` (default: every local device; a list may repeat one, such as
     ``[cuda:0] * 2``). ``args`` carries the launcher's fields; tests pass a
     hand-built Namespace. Returns the losses."""
@@ -237,7 +244,9 @@ def plan_deployment(arch: str, device, n_micro: int = 4):
     return result, lower_strategy(result.strategy, result.gg, topo, n_micro=n_micro)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The launcher's flags, as ``repro.launch.train`` parses them; a flag
+    the port does not run yet raises, naming its ROADMAP item."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true", help="use the reduced config (CPU-sized)")
@@ -259,11 +268,15 @@ def main(argv=None):
     ap.add_argument("--pipeline", choices=["auto", "off", "gpipe", "1f1b", "interleaved", "zb"],
                     default="auto",
                     help="how to execute PIPE actions in a TAG plan: auto uses the schedule "
-                         "the searched strategy voted for, off forces single-device rules, "
+                         "the searched strategy voted for, off forces single-mesh rules, "
                          "a schedule name asks for that schedule")
-    ap.add_argument("--engine", default="eager",
+    ap.add_argument("--engine", choices=["eager", "scan"], default="eager",
                     help="pipeline execution engine: eager dispatches every schedule event "
-                         "from Python (scan, the compiled engine, is not ported yet)")
+                         "from Python; scan runs each stage's forward and backward loops "
+                         "as CUDA graphs, captured at the first step (GPipe-like stash)")
+    ap.add_argument("--scan-unroll", type=int, default=1,
+                    help="microbatch bodies in one graph for --engine scan (1 keeps "
+                         "capture time and graph memory flat in n_micro)")
     ap.add_argument("--n-micro", type=int, default=4, help="microbatches per pipelined step")
     ap.add_argument("--n-chunks", type=int, default=2,
                     help="virtual model chunks per stage for the interleaved schedule")
@@ -274,12 +287,15 @@ def main(argv=None):
         if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
-    if args.engine != "eager":
-        raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP queue 1, item {SCAN_ITEM})")
+    return args
 
+
+def main(argv=None):
+    args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
+    mesh = mesh_mod.make_host_mesh(None if device.type == "cuda" else [device])
+    rules = steps_mod.baseline_rules(mesh)
 
     if args.tag_search:
         t0 = time.perf_counter()
@@ -290,7 +306,7 @@ def main(argv=None):
               flush=True)
         print(f"TAG plan: speedup={result.speedup:.2f}x "
               f"summary={json.dumps(plan.summary)}", flush=True)
-        devices = mesh_mod.local_devices() if device.type == "cuda" else [device]
+        devices = list(mesh.devices.flat)
         stage_plan = resolve_pipeline(plan, args.pipeline, devices)
         if stage_plan is not None:
             return run_pipeline(args, cfg, stage_plan, devices)
@@ -312,7 +328,7 @@ def main(argv=None):
                           frontend_tokens=cfg.frontend_tokens if cfg.frontend != "none" else 0,
                           d_model=cfg.d_model)
     options = steps_mod.StepOptions(loss_chunk=args.loss_chunk)
-    step_fn = steps_mod.make_train_step(cfg, opt, options)
+    step_fn = steps_mod.make_train_step(cfg, opt, rules, options)
     timer = None
     if args.telemetry_dir:
         from repro_torch.runtime.telemetry import MeasurementStore, StepTimer
@@ -322,8 +338,8 @@ def main(argv=None):
                                 "device": str(device)})
         step_fn = steps_mod.instrument_step(step_fn, timer)
 
-    print(f"training {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}",
-          flush=True)
+    print(f"training {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}, "
+          f"data parallel over the host mesh {mesh.shape}", flush=True)
     losses = []
     t_start = time.time()
     for step in range(start_step, args.steps):

@@ -91,6 +91,9 @@ def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device):
     }
 
 
+KV_CACHE_AXES = ("batch", "cache_seq", "kv_heads", None)
+
+
 def decode_attention(cfg, p, x, cache, pos: int):
     """One-token decode. x: (B, 1, D); cache k/v: (B, Sc, KV, hd) ring buffer
     (the ring only engages when sliding_window > 0). ``pos``: absolute

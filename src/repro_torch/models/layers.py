@@ -56,6 +56,21 @@ def init_tree(defs, generator: torch.Generator, dtype: torch.dtype):
     return out
 
 
+def abstract_tree(defs, dtype: torch.dtype):
+    """Tensors on the ``meta`` device for a nested dict of ParamDefs: shapes
+    and dtypes, no storage."""
+    if isinstance(defs, ParamDef):
+        return torch.empty(defs.shape, dtype=dtype, device="meta")
+    return {k: abstract_tree(v, dtype) for k, v in defs.items()}
+
+
+def axes_tree(defs):
+    """The logical axes of every ParamDef of a nested dict."""
+    if isinstance(defs, ParamDef):
+        return defs.axes
+    return {k: axes_tree(v) for k, v in defs.items()}
+
+
 def stack_defs(defs, n: int, axis_name: str = "layers"):
     """Prepend a stacking dimension (one slice per period)."""
     if isinstance(defs, ParamDef):

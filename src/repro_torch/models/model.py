@@ -9,9 +9,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import InputShape
 from repro_torch.launch.device import resolve_device
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import ParamDef, cross_entropy, init_tree, rms_norm
+from repro_torch.models.layers import (
+    ParamDef, abstract_tree, axes_tree, cross_entropy, init_tree, rms_norm)
 
 MAX_SMOKE_AUX = 0.01  # aux-loss weight
 
@@ -43,6 +45,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
     return init_tree(model_defs(cfg), generator, torch_dtype(cfg))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameters' shapes and dtype as tensors on the ``meta`` device."""
+    return abstract_tree(model_defs(cfg), torch_dtype(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axes of every parameter leaf."""
+    return axes_tree(model_defs(cfg))
 
 
 def _head(cfg, params, h):
@@ -107,6 +119,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
                                      torch_dtype(cfg), resolve_device(device))
 
 
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
+    """``init_cache``'s leaves as tensors on the ``meta`` device."""
+    return init_cache(cfg, batch, seq_len, "meta")
+
+
+def cache_axes(cfg: ModelConfig):
+    return tf_mod.cache_axes(cfg)
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One decode step. tokens: (B, 1) int64; pos: absolute position.
     Returns (logits (B, 1, V), cache), the cache updated in place."""
@@ -120,3 +141,24 @@ def prefill_step(cfg: ModelConfig, params, batch):
     """Inference prefill: full forward, returns last-position logits (B, 1, V)."""
     h, _, _ = forward(cfg, params, batch, remat=False)
     return _head(cfg, params, h[:, -1:])
+
+
+# ----------------------------------------------------------- input specs
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Every model input of ``shape`` as a tensor on the ``meta`` device.
+    Tokens and labels are int64, the port's index dtype."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
+            "(ROADMAP: frontend stubs)")
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(*dims):
+        return torch.empty(dims, dtype=torch.long, device="meta")
+    if shape.kind == "decode":
+        return {"tokens": spec(B, 1)}
+    specs = {"tokens": spec(B, S)}
+    if shape.kind == "train":
+        specs["labels"] = spec(B, S)
+    return specs

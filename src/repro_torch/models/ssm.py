@@ -144,6 +144,10 @@ def init_ssm_cache(cfg, batch: int, dtype, device):
     }
 
 
+SSM_CACHE_AXES = {"h": ("batch", "ssm_heads", None, None),
+                  "conv": ("batch", None, "ssm_inner")}
+
+
 def mamba_decode(cfg, p, u, cache):
     """One-token recurrent step. u: (B, 1, D). Returns (out (B, 1, D), cache).
 

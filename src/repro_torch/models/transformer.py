@@ -127,6 +127,16 @@ def init_stacked_cache(cfg, batch: int, cache_len: int, dtype, device):
     return cache
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of every leaf of ``init_stacked_cache``'s cache."""
+    axes = {}
+    for j, ch in enumerate(cfg.pattern):
+        per = ({"k": attn.KV_CACHE_AXES, "v": attn.KV_CACHE_AXES} if ch == "A"
+               else ssm_mod.SSM_CACHE_AXES)
+        axes[f"layer{j}"] = {k: ("layers", *a) for k, a in per.items()}
+    return axes
+
+
 def stack_decode(cfg, stacked, cache, x, pos: int):
     """One token through every layer; ``cache`` is updated in place.
     Returns (x, cache)."""

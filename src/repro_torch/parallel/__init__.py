@@ -1,2 +1,3 @@
-"""Parallel execution helpers of the port: the gradient-sync primitives of
-per-stage data parallelism (``sfb_dense``)."""
+"""Parallel execution helpers of the port: logical-axis sharding rules over
+a mesh of ``torch.device``s (``sharding``) and the gradient-sync primitives
+of data parallelism (``sfb_dense``)."""

@@ -242,7 +242,7 @@ def test_train_step_on_card_matches_cpu(arch):
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ds = SyntheticDataset(cfg.vocab_size, 64, 2, seed=1)
     opt = AdamW(lr=1e-3)
-    step = make_train_step(cfg, opt, StepOptions(loss_chunk=32))
+    step = make_train_step(cfg, opt, None, StepOptions(loss_chunk=32))
     out = {}
     for dev in ("cuda", "cpu"):
         p = _tree_map(lambda t: t.detach().to(dev).clone(), params)
@@ -342,3 +342,108 @@ def test_pipeline_engine_on_card_matches_single_device(schedule, sync, n_devices
         assert a.device == dev
         assert (a - b).abs().max().item() < 1e-4
     assert stats.peak_stash == 3 and {e[0] for e in stats.events} == {"F", "B"}
+
+
+# (name, schedule, sync, devices a stage, n_micro, chunks a stage, unroll)
+SCAN_CASES = [
+    ("1f1b", "1f1b", "allreduce", 1, 4, 1, 1),
+    ("zb-unroll3", "zb", "allreduce", 1, 4, 1, 3),
+    ("interleaved-unroll4", "interleaved", "allreduce", 1, 4, 2, 4),
+    ("1f1b-sfb-dp2", "1f1b", "sfb", 2, 2, 1, 1),
+    ("zb-ps-dp2-unroll2", "zb", "ps", 2, 2, 1, 2),
+]
+
+
+def _scan_setup(arch, sync, n, n_micro, V, devices):
+    from repro_torch.configs import get_reduced
+    from repro_torch.exec import StagePlan, StageSpec, split_model
+    from repro_torch.models.model import init_params
+    kw = {"ssm_chunk": 32} if arch == "mamba2-130m" else {}
+    cfg = get_reduced(arch).replace(dtype="float32", **kw)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    plan = StagePlan(
+        stages=[StageSpec(i, i, [i], flops=1e9, param_bytes=0, grad_bytes=0, out_bytes=1e5,
+                          sync=sync, n_devices=n, gpu_type="H100") for i in range(2)],
+        placement=(0, 1), n_micro=n_micro)
+    out = {}
+    for dev in devices:
+        p = _tree_map(lambda t: t.detach().to(dev).clone(), params)
+        splits = plan.layer_splits(cfg.num_periods, n_chunks=V)
+        out[dev] = split_model(cfg, p, 2 * V, splits=splits)
+    return cfg, plan, out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("case", [c[0] for c in SCAN_CASES])
+def test_scan_engine_captured_matches_uncaptured(case, arch):
+    """The compiled engine on the card, each loop a CUDA graph captured at
+    the first step and replayed after, against the same engine uncaptured on
+    the CPU and the eager engine on the card: 3 steps, each on a new batch,
+    AdamW updating the card's parameters in place between them (so the
+    replays read new inputs and new parameters). Loss 1e-4 relative and
+    every gradient leaf 1e-4 x max(1, max |g|), TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.exec import CompiledPipelineRunner, PipelineRunner
+    from repro_torch.optim.adam import AdamW, leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, sched, sync, n, n_micro, V, unroll = next(c for c in SCAN_CASES if c[0] == case)
+    dev, cpu = torch.device("cuda", 0), torch.device("cpu")
+    cfg, plan, split = _scan_setup(arch, sync, n, n_micro, V, (dev, cpu))
+    runners = {}
+    for name, d, cls, kw in (("scan", dev, CompiledPipelineRunner, {"unroll": unroll}),
+                             ("eager", dev, PipelineRunner, {}),
+                             ("cpu", cpu, CompiledPipelineRunner, {"unroll": unroll})):
+        sp, fns, keys, tied = split[d]
+        r = cls(fns, plan, [[d] * n] * 2, schedule=sched, n_micro=n_micro, n_chunks=V,
+                mb_keys=keys, tied_ref=tied, **kw)
+        runners[name] = (r, r.place_params(sp))
+    opt = AdamW(lr=1e-3)
+    scan, params = runners["scan"]
+    state = [opt.init(p) for p in params]
+    rng = np.random.default_rng(1)
+    seq = 64 if arch == "mamba2-130m" else 16
+    for step in range(3):
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, seq)))
+                 for k in ("tokens", "labels")}
+        g_scan, s_scan = scan.step(params, {k: v.to(dev) for k, v in batch.items()})
+        assert s_scan.peak_stash == 2 * V * n_micro
+        others = [runners["eager"][0].step(params, {k: v.to(dev) for k, v in batch.items()})]
+        if step == 0:
+            others.append(runners["cpu"][0].step(runners["cpu"][1], batch))
+        for g_ref, s_ref in others:
+            assert abs(s_scan.loss - s_ref.loss) <= 1e-4 * abs(s_ref.loss), (step, case)
+            for a, b in zip((x for g in g_scan for x in leaves(g)),
+                            (x for g in g_ref for x in leaves(g)), strict=True):
+                assert a.device == dev and bool(torch.isfinite(a).all())
+                if b.numel():
+                    err = (a - b.to(dev)).abs().max().item()
+                    assert err <= 1e-4 * max(1.0, b.abs().max().item()), (step, case, err)
+        for p, s, g in zip(params, state, g_scan, strict=True):
+            opt.update(p, s, g, step)           # in place: the graphs read p
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_scan_engine_capture_refuses_a_host_copy():
+    """A stage that copies from the host inside a loop cannot be captured:
+    the step raises, and nothing falls back to the uncaptured loop. (Last in
+    this file: the failed capture is left to the CUDA context.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.exec import CompiledPipelineRunner
+    dev = torch.device("cuda", 0)
+    cfg, plan, split = _scan_setup("qwen2-1.5b", "allreduce", 1, 4, 1, (dev,))
+    sp, fns, keys, tied = split[dev]
+    last = fns[1]
+
+    def host_copy(p, carry, mb):
+        loss, mets = last(p, carry, mb)
+        return loss * torch.tensor(1.0, device=loss.device), mets
+
+    runner = CompiledPipelineRunner([fns[0], host_copy], plan, [[dev], [dev]],
+                                    mb_keys=keys, tied_ref=tied)
+    batch = {k: torch.zeros((8, 16), dtype=torch.long, device=dev) for k in ("tokens", "labels")}
+    with pytest.raises(RuntimeError):
+        runner.step(runner.place_params(sp), batch)

@@ -72,7 +72,7 @@ def test_mamba_generate_gives_the_jax_tokens(B, P, gen, seed):
 def test_prefill_step_argmax_is_first_generated_token():
     """The fused prefill and the stepped prompt reach the same next token."""
     _, tcfg, _, tp, prompts = _weights_and_prompts(2, 16)
-    logits = tsteps.make_prefill_step(tcfg.replace(attn_impl="pallas"))(
+    logits = tsteps.make_prefill_step(tcfg.replace(attn_impl="pallas"), None)(
         tp, {"tokens": torch.from_numpy(prompts)})
     out = tserve.generate(tcfg, tp, prompts, 1)
     np.testing.assert_array_equal(logits[:, -1].argmax(-1).numpy(), out[:, 0].numpy())

@@ -20,7 +20,6 @@ Mamba runs at sequence 64 in chunks of 32: at the model's initial step sizes
 ``repro``'s ``ssd_chunked`` keeps finite gradients only while a chunk's
 decay stays under about 88 (see test_torch_ssm.py).
 """
-import argparse
 import functools
 import shutil
 
@@ -46,6 +45,7 @@ from repro.runtime.telemetry import MeasurementStore as JaxMeasurementStore
 from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import get_reduced
 from repro_torch.data.synthetic import SyntheticDataset
+from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import model as tmodel
@@ -211,7 +211,9 @@ def test_train_step_trajectory_matches_jax():
     jstep = jax.jit(jsteps.make_train_step(
         jcfg, jadam.AdamW(**opt_kw), jsteps.baseline_rules(jmesh.make_host_mesh()),
         jsteps.StepOptions(**options)))
-    tstep = tsteps.make_train_step(tcfg, tadam.AdamW(**opt_kw), tsteps.StepOptions(**options))
+    tstep = tsteps.make_train_step(
+        tcfg, tadam.AdamW(**opt_kw), tsteps.baseline_rules(tmesh.make_host_mesh([CPU])),
+        tsteps.StepOptions(**options))
     jds = JaxDataset(jcfg.vocab_size, SEQ, BATCH, seed=5)
     tds = SyntheticDataset(tcfg.vocab_size, SEQ, BATCH, seed=5)
     jparams = jax.tree.map(jnp.asarray, jp)
@@ -321,43 +323,47 @@ def test_train_cli_on_cpu_learns_and_records_telemetry(tmp_path, capsys):
     assert recs[0].meta["arch"] == "qwen2-1.5b"
 
 
-@pytest.mark.parametrize("flag", ["--engine", "--run-id", "--scan-unroll", "--spool-dir",
-                                  "--trace-dir", "--xla-profile"])
+@pytest.mark.parametrize("flag", ["--run-id", "--spool-dir", "--trace-dir", "--xla-profile"])
 def test_train_cli_refuses_unported_flags(flag):
     """The flags of ``repro``'s launcher that the port does not run yet are
-    refused, naming the ROADMAP item (queue 1) that brings them: the compiled
-    engine (``--engine scan``, ``--scan-unroll``) and observability."""
+    refused, naming the ROADMAP item (queue 1) that brings them:
+    observability."""
     argv = ["--smoke", "--device", "cpu", "--steps", "0", flag]
-    if flag == "--engine":
-        argv.append("scan")
-        item = ttrain.SCAN_ITEM
-    else:
-        if "action" not in ttrain.UNPORTED_FLAGS[flag][0]:
-            argv.append("1")
-        item = ttrain.UNPORTED_FLAGS[flag][1]
-    assert item.split(",")[0] in ("1.3", "1.6")
+    if "action" not in ttrain.UNPORTED_FLAGS[flag][0]:
+        argv.append("1")
+    item = ttrain.UNPORTED_FLAGS[flag][1]
+    assert item.split(",")[0] == "1.6"
     with pytest.raises(NotImplementedError,
                        match=rf"{flag} .*ROADMAP queue 1, item {item.split(',')[0]}"):
         ttrain.main(argv)
 
 
-@pytest.mark.parametrize("flag,value", [("--n-chunks", "3"), ("--engine", "eager")])
-def test_train_cli_accepts_pipeline_flags(flag, value, capsys):
-    """The pipeline slice's flags: the launcher accepts them, and
-    ``run_pipeline`` runs what they ask for. ``--n-chunks 3`` under the
-    interleaved schedule gives 3 virtual stages on each of 2 stages (the
-    ``x2x3v`` log tag); ``--engine eager`` is the engine that runs."""
+@pytest.mark.parametrize("flag,value,want", [
+    ("--n-chunks", "3", "[pipeline interleaved x2x3v]"),
+    ("--engine", "eager", "pipeline engine: eager"),
+    ("--engine", "scan", "pipeline engine: scan (uncaptured on cpu, unroll=1)"),
+    ("--scan-unroll", "3", "pipeline engine: scan (uncaptured on cpu, unroll=3)"),
+])
+def test_train_cli_accepts_pipeline_flags(flag, value, want, capsys):
+    """The pipeline flags: the launcher accepts them, and ``run_pipeline``,
+    given the launcher's own parse of them, runs what they ask for.
+    ``--n-chunks 3`` under the interleaved schedule gives 3 virtual stages
+    on each of 2 stages (the ``x2x3v`` log tag); ``--engine`` picks the
+    engine that runs (the compiled one uncaptured on the CPU);
+    ``--scan-unroll`` sets its microbatch bodies a loop."""
     ttrain.main(["--smoke", "--device", "cpu", "--steps", "0", flag, value])
     assert "done: 1 steps" in capsys.readouterr().out
     cfg = ttrain.get_reduced("qwen2-1.5b").replace(dtype="float32", num_layers=6)
-    args = argparse.Namespace(
-        arch="qwen2-1.5b", batch=8, seq=16, lr=1e-3, seed=0, steps=1, log_every=1, ckpt_dir="",
-        ckpt_every=0, resume=False, pipeline="interleaved", n_micro=4, n_chunks=2,
-        telemetry_dir="", engine="eager")
-    setattr(args, flag[2:].replace("-", "_"), int(value) if flag == "--n-chunks" else value)
-    losses = ttrain.run_pipeline(args, cfg, _pipe_plan().stage_plan, [CPU, CPU])
-    tag = "x2x3v" if flag == "--n-chunks" else "x2x2v"
-    assert f"[pipeline interleaved {tag}]" in capsys.readouterr().out
+    argv = ["--smoke", "--device", "cpu", "--steps", "1", "--batch", "8", "--seq", "16",
+            "--pipeline", "interleaved", flag, value]
+    if flag == "--scan-unroll":
+        argv += ["--engine", "scan"]
+    losses = ttrain.run_pipeline(ttrain.parse_args(argv), cfg, _pipe_plan().stage_plan,
+                                 [CPU, CPU])
+    out = capsys.readouterr().out
+    assert want in out
+    assert ("[pipeline interleaved x2x3v]" if flag == "--n-chunks"
+            else "[pipeline interleaved x2x2v]") in out
     assert len(losses) == 1 and np.isfinite(losses[0])
 
 
@@ -425,8 +431,20 @@ def test_pipelined_plan_falls_back_without_the_devices(capsys):
 
 
 def test_engine_scan_still_raises():
-    with pytest.raises(NotImplementedError, match=r"--engine .*ROADMAP queue 1, item 1\.3"):
-        ttrain.main(["--smoke", "--device", "cpu", "--tag-search", "--engine", "scan"])
+    """The compiled engine refuses a stage whose shards sit on distinct CUDA
+    devices (checked before any device is touched); a stage's shards on one
+    card, or on the CPU, run."""
+    from repro_torch.exec import CompiledPipelineRunner, split_model
+    from repro_torch.models.model import init_params
+    cfg = ttrain.get_reduced("qwen2-1.5b").replace(dtype="float32")
+    _, fns, keys, tied = split_model(
+        cfg, init_params(cfg, torch.Generator().manual_seed(0), CPU), 2)
+    plan = _pipe_plan().stage_plan
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    for sets in ([cuda[:2], cuda[2:]], [[CPU, cuda[0]], [CPU, CPU]]):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3"):
+            CompiledPipelineRunner(fns, plan, sets, mb_keys=keys, tied_ref=tied)
+    CompiledPipelineRunner(fns, plan, [[CPU, CPU], [CPU, CPU]], mb_keys=keys, tied_ref=tied)
 
 
 def test_instrumented_step_times_each_call():
