@@ -16,13 +16,22 @@ Phases, each printed on lines of its own and each fatal when it fails:
            version, one PyTorch library call where there is one, and the
            card's bound: device time from a CUDA graph of back-to-back calls
            (and, for comparison, eager calls timed with CUDA events); the
-           launch (blocks against SMs, shared memory a block).
-4. serve   the main paths, each with every kernel count at 0 just before it:
-           full-width qwen2-1.5b in bf16, a prefill of (4, 512) prompts
-           through the flash kernel (28 launches), then ``generate`` of 32
-           greedy tokens; full-width mamba2-130m in bf16, a prefill of
-           (4, 1024) prompts through the SSD kernel (24 launches), then
-           ``generate`` of 32 greedy tokens. Random weights from ``--seed``.
+           launch (blocks against SMs, shared memory a block). Then both
+           kernels at the other families' prefill shapes (flash: olmoe
+           4 x 512 16/16 hd 128, jamba 32/8, musicgen 4 x 768 32/32 hd 64,
+           internvl 4 x 768 48/8; SSD: jamba's 128 heads of 64, state 16),
+           checked in f32 and bf16 and timed in bf16 beside SDPA and the
+           bound.
+4. serve   the main paths, each with every kernel count at 0 just before it,
+           full width in bf16, random weights from ``--seed``, a prefill of
+           4 prompts through the hand kernels (one launch a layer of the
+           kernel's mixer), then ``generate`` of 32 greedy tokens:
+           qwen2-1.5b (4 x 512, flash x 28), mamba2-130m (4 x 1024, SSD x
+           24), olmoe-1b-7b (4 x 512, 64 experts top-8, flash x 16),
+           jamba-v0.1-52b at one period of 8 layers (4 x 512, flash x 1, SSD
+           x 7, MoE on every other layer), musicgen-large and internvl2-26b
+           (4 x 512 behind a 256-token prefix, flash x 48 each). Each model
+           is freed before the next.
 5. profile where each serve path's time goes: torch.profiler over one
            prefill and over 8 decode steps of the same model, kernel time by
            group and the device's busy share.
@@ -32,17 +41,23 @@ Phases, each printed on lines of its own and each fatal when it fails:
            chunked scan on the CPU, from a copy of the same weights.
 7. train   the training path, with every kernel count at 0 just before it:
            full-width qwen2-1.5b (batch 8 x 512) and mamba2-130m (batch
-           8 x 1024), all layers, bf16, 6 steps of ``make_train_step`` (loss
-           in chunks of 128, full activation checkpointing, f32 AdamW
-           moments) on ``SyntheticDataset``. Gates: every parameter has a
-           finite, non-zero gradient and moves in the first step (or, where
-           bf16 rounds AdamW's update away, its moments show the gradient
+           8 x 1024), all layers, and olmoe-1b-7b at 4 layers (8 x 512), bf16,
+           6 steps of ``make_train_step`` (loss in chunks of 128, full
+           activation checkpointing, f32 AdamW moments) on
+           ``SyntheticDataset``. Gates: every parameter has a finite,
+           non-zero gradient and moves in the first step (or, where bf16
+           rounds AdamW's update away, its moments show the gradient
            arrived); the first loss is within 0.5 of ln(V) and the last is
-           below it. Prints train_step_ms, tokens/s, mfu, peak memory and a
-           torch.profiler split of one step. Then one f32 step of each model
-           at full width and 2 layers, card against CPU: loss, gradients,
-           and AdamW on the same gradients. The path runs no hand kernel:
-           ``repro`` trains through its plain routes, as the port does.
+           below it. Prints train_step_ms, tokens/s, mfu (active experts
+           only), peak memory, the MoE aux of each step and a torch.profiler
+           split of one step. Then one f32 step of each model at full width
+           and 2 layers, card against CPU: loss, gradients, and AdamW on the
+           same gradients; for olmoe first the routing of every layer, where
+           each assignment that routes otherwise must be a near-tie on the
+           CPU (and where one did, the tokens that route alike are also held,
+           each its own loss). The
+           path runs no hand kernel: ``repro`` trains through its plain
+           routes, as the port does.
 8. plan    the TAG planner: full-width qwen2-1.5b (8 x 512) and mamba2-130m
            (8 x 1024) training graphs traced on meta tensors (parameter
            bytes exact, matmul FLOPs within 2 % of the analytic count); bf16
@@ -54,12 +69,15 @@ Phases, each printed on lines of its own and each fatal when it fails:
            the reduced one: ``simplify``, ``partition`` into 24 groups and
            24 MCTS playouts over ``h100_nodes()``, each step timed.
 9. dp      single-mesh data parallelism, every kernel count at 0 just before
-           it: full-width qwen2-1.5b and mamba2-130m at 4 layers in f32,
-           batch 8 x 128, the gradient of ``make_grad_step`` and one
-           ``make_train_step`` under ``baseline_rules(make_host_mesh([cuda:0]
-           * k))`` for k = 2 and 4, and at batch 6 over 4 (replicated),
-           against one device's, 1e-4; then ``generate`` over ``[cuda:0] *
-           2`` (rows split and replicated) against one device's tokens.
+           it: full-width qwen2-1.5b and mamba2-130m at 4 layers and
+           olmoe-1b-7b at 2, f32, batch 8 x 128, the gradient of
+           ``make_grad_step`` and one ``make_train_step`` under
+           ``baseline_rules(make_host_mesh([cuda:0] * k))`` for k = 2 and 4,
+           and at batch 6 over 4 (replicated), against one device's under
+           the same rules (which pick the MoE group count), 1e-4, the MoE
+           aux and router gradient included; then ``generate`` over
+           ``[cuda:0] * 2`` (rows split and replicated) against one device's
+           tokens.
 10. pipeline both pipeline engines, every kernel count at 0 just before
            them. A gradient gate at full width: qwen2-1.5b at d_model 1536
            and 4 layers in f32, batch 8 x 128, all four schedules on
@@ -68,14 +86,18 @@ Phases, each printed on lines of its own and each fatal when it fails:
            engine against the single-device gradient on the card, the
            compiled engine (its loops CUDA graphs, 1 and ``n_micro``
            microbatch bodies a graph) against the eager engine, with its
-           ``peak_stash`` and event count. Then a user's run, once with each
-           engine: ``run_pipeline`` on full-width, full-depth qwen2-1.5b in
-           bf16 at batch 8 x 512, ``n_micro`` 4, 3 steps, with the 2-stage
-           plan of ``plan_deployment`` and with a hand-built 2-stage plan;
-           each step's time, events and stash come from the engine's
-           telemetry records. Each pipeline is then built again and takes two
-           train steps without per-event synchronization (the first captures
-           the compiled engine's graphs), timed, and one profiled. On one card
+           ``peak_stash`` and event count. The same for olmoe-1b-7b at 4
+           layers, 1f1b and zb with AR and 2 shards a stage, the eager engine
+           against one device's mean over the row blocks the shards route
+           alone, the compiled engine at unroll 1 against the eager engine.
+           Then a user's run, once with each engine: ``run_pipeline`` on
+           full-width, full-depth qwen2-1.5b in bf16 at batch 8 x 512,
+           ``n_micro`` 4, 3 steps, with the 2-stage plan of
+           ``plan_deployment`` and with a hand-built 2-stage plan; each
+           step's time, events and stash come from the engine's telemetry
+           records. Each pipeline is then built again and takes two train
+           steps without per-event synchronization (the first captures the
+           compiled engine's graphs), timed, and one profiled. On one card
            this checks the schedule and the gradients and measures the
            engines' overhead, not overlap.
 11. kernels one JSON line with every kernel's launches, error and times.
@@ -124,7 +146,7 @@ SSD_ROUNDING_EXCESS_TOL = 1e-4
 # train phase: (batch, seq) a model, steps, loss chunk, and the launcher's
 # learning rate. (At 2e-3 and 3e-3 qwen2-1.5b's loss rose to 15.3 and 15.8
 # within the 6 steps, from 12.3.)
-TRAIN_SHAPE = {"qwen2-1.5b": (8, 512), "mamba2-130m": (8, 1024)}
+TRAIN_SHAPE = {"qwen2-1.5b": (8, 512), "mamba2-130m": (8, 1024), "olmoe-1b-7b": (8, 512)}
 TRAIN_STEPS, TRAIN_LOSS_CHUNK, TRAIN_LR = 6, 128, 1e-3
 TRAIN_LOSS_WINDOW = 0.5                  # first loss within this of ln(V)
 # f32 train step, card against CPU, full width at 2 layers
@@ -148,17 +170,29 @@ PIPE_RUN_BATCH, PIPE_RUN_SEQ, PIPE_RUN_MICRO, PIPE_RUN_STEPS = 8, 512, 4, 3
 # dp phase: the gradient gate (f32, full width, 4 layers, TF32 off), each
 # case (positions of [cuda:0] * k on the "data" axis, batch rows): split,
 # split, replicated; then generate on [cuda:0] * 2, rows split and replicated
-DP_LAYERS, DP_SEQ, DP_TOL = 4, 128, 1e-4
+DP_SEQ, DP_TOL = 128, 1e-4
 DP_CASES = ((2, 8), (4, 8), (4, 6))
 DP_SERVE_ROWS, DP_SERVE_PROMPT, DP_SERVE_GEN = (4, 3), 16, 8
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
-SERVE_PROMPT = {QWEN: 512, MAMBA: 1024}
+OLMOE, JAMBA, MUSICGEN, INTERNVL = ("olmoe-1b-7b", "jamba-v0.1-52b", "musicgen-large",
+                                    "internvl2-26b")
+SERVE_ARCHS = (QWEN, MAMBA, OLMOE, JAMBA, MUSICGEN, INTERNVL)
+SERVE_PROMPT = {QWEN: 512, MAMBA: 1024, OLMOE: 512, JAMBA: 512, MUSICGEN: 512, INTERNVL: 512}
+# jamba serves one period of 8 layers at full width: the whole model, 51.5 B
+# parameters (103 GB in bf16), does not fit one card
+SERVE_LAYERS = {JAMBA: 8}
 SERVE_BATCH, SERVE_GEN = 4, 32
 PARITY_BATCH, PARITY_PROMPT = 2, 256
-# the kernel each serve path runs, and the mixer whose layers launch it
-PATH_KERNEL = {QWEN: ("flash_attention", "A"), MAMBA: ("ssd_scan", "M")}
+# each kernel and the mixer whose layers launch it in a prefill
+MIXER_KERNEL = {"A": "flash_attention", "M": "ssd_scan"}
 KERNEL_SOURCES = ("flash_attention", "ssd_scan")
+# the MoE train path (full width, 4 layers) and its card-against-CPU parity:
+# an assignment that routes otherwise on the card must be a near-tie on the
+# CPU, its two probabilities within this relative distance
+MOE_TRAIN_LAYERS, ROUTE_TIE_RTOL = 4, 1e-6
+# dp phase: depth a model (qwen2-1.5b and mamba2-130m 4, olmoe-1b-7b 2)
+DP_ARCH_LAYERS = {QWEN: 4, MAMBA: 4, OLMOE: 2}
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, B, S, H, KV, hd, causal, window, dtype)
@@ -195,6 +229,13 @@ SSD_CASES = [
     # edges of the bf16 kernel's hd slices of 32: hd 24 and 48
     *[(f"hdslice{hd}", 2, 256, 4, hd, 2, 64, 128, dt) for hd in (24, 48) for dt in (BF16, F32)],
 ]
+# the other families' prefills, bf16 as served: (label, B, S, H, KV, hd),
+# causal; S counts a frontend's 256-token prefix; G = H / KV query heads a
+# KV head (olmoe and musicgen MHA: 1)
+FLASH_FAMILY = [(OLMOE, 4, 512, 16, 16, 128), (JAMBA, 4, 512, 32, 8, 128),
+                (MUSICGEN, 4, 768, 32, 32, 64), (INTERNVL, 4, 768, 48, 8, 128)]
+# jamba's Mamba layers: (label, Bb, S, nh, hd, g, ds, chunk), state 16
+SSD_FAMILY = [(JAMBA, 4, 512, 128, 64, 1, 16, 128)]
 
 
 def log(phase: str, msg: str):
@@ -561,8 +602,104 @@ def kernel_ssd(seed: int) -> dict:
             "library_ms": None}
 
 
-def phase_kernel(seed: int) -> list:
-    return [kernel_flash(seed), kernel_ssd(seed)]
+def _flash_check(fa, q, k, v) -> tuple:
+    """The flash kernel on (q, k, v), causal, against its plain version:
+    (max_abs_err, rounding excess in bf16 or None, ok)."""
+    from repro_torch.kernels.ref import ref_gqa_attention
+    dt = q.dtype
+    o = fa.flash_attention(q, k, v, causal=True)
+    err = (o.float() - ref_gqa_attention(q, k, v).float()).abs().max().item()
+    ok = o.dtype == dt and o.shape == q.shape and err <= KERNEL_ATOL[dt]
+    excess = None
+    if dt == BF16:
+        excess = rounding_excess(o, ref_gqa_attention(q.float(), k.float(), v.float()))
+        ok = ok and excess <= ROUNDING_EXCESS_TOL
+    return err, excess, ok
+
+
+def kernel_family(seed: int, smi: str):
+    """Both kernels at the shapes of the other families' prefills: each
+    checked in f32 and bf16 against its plain version with the gates above,
+    then timed in bf16 (``graph_ms``) beside its plain version, SDPA (flash)
+    and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels.ref import ref_gqa_attention
+    rng = np.random.default_rng(seed + 3)
+    for label, B, S, H, KV, hd in FLASH_FAMILY:
+        checks = []
+        for dt in (F32, BF16):
+            q, k, v = (_rand(rng, (B, S, h, hd), dt) for h in (H, KV, KV))
+            err, excess, ok = _flash_check(fa, q, k, v)
+            checks.append(f"{str(dt)[6:]} max_abs_err {err:.3g} (tol {KERNEL_ATOL[dt]:g})"
+                          + ("" if excess is None else f", beyond half a bf16 step "
+                             f"{excess:.3g} (tol {ROUNDING_EXCESS_TOL:g})")
+                          + (" ok" if ok else " DISAGREES"))
+            if not ok:
+                log("kernel", f"flash_attention {label}: " + "; ".join(checks))
+                raise RuntimeError(f"flash_attention disagrees with its plain version at "
+                                   f"{label}'s shape")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v, causal=True), 50)
+        plain_ms = graph_ms(lambda: ref_gqa_attention(q, k, v, causal=True), 5)
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * B * H * hd * attended_pairs(S, True, 0)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[BF16] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        log("kernel", f"flash_attention {label} B={B} S={S} H={H} KV={KV} hd={hd} causal: "
+                      + "; ".join(checks) + f"; bf16 graph_ms kernel {ms:.4f}, plain "
+                      f"{plain_ms:.4f}, scaled_dot_product_attention {library_ms:.4f} "
+                      f"(kernel/SDPA {ms / library_ms:.3f}); bound {bound_ms * 1e3:.2f} us "
+                      f"({'bytes' if t_bytes >= t_ops else 'operations'}: {nbytes / 1e6:.2f} MB, "
+                      f"{flops / 1e9:.3f} GFLOP), {bound_ms / ms:.2%} of the bound; "
+                      f"{_plan_text(fa.launch_plan(B, S, H, KV, hd, BF16), _sms())}; {smi}")
+    for label, Bb, S, nh, hd, g, ds, chunk in SSD_FAMILY:
+        checks = []
+        for dt in (F32, BF16):
+            x, dtv, A, B_, C = _ssd_inputs(rng, Bb, S, nh, hd, g, ds, dt, strided=True)
+            y, h = ssd.ssd_scan(x, dtv, A, B_, C, chunk=chunk)
+            yr, hr = plain_ssd(x, dtv, A, B_, C, chunk)
+            err = (y.float() - yr.float()).abs().max().item()
+            h_err = (h - hr).abs().max().item()
+            h_tol = SSD_H_RTOL * max(1.0, hr.abs().max().item())
+            ok = (y.dtype == dt and y.shape == x.shape and bool(torch.isfinite(y.float()).all())
+                  and err <= SSD_ATOL[dt] and h_err <= h_tol)
+            text = (f"{str(dt)[6:]} y max_abs_err {err:.3g} (tol {SSD_ATOL[dt]:g}), h "
+                    f"{h_err:.3g} (tol {h_tol:.3g})")
+            if dt == BF16:
+                yr32, _ = plain_ssd(x.float(), dtv, A, B_.float(), C.float(), chunk)
+                xs = rounding_excess(y, yr32)
+                ok = ok and xs <= SSD_ROUNDING_EXCESS_TOL
+                text += f", beyond half a bf16 step {xs:.3g} (tol {SSD_ROUNDING_EXCESS_TOL:g})"
+            checks.append(text + (" ok" if ok else " DISAGREES"))
+            if not ok:
+                log("kernel", f"ssd_scan {label}: " + "; ".join(checks))
+                raise RuntimeError(f"ssd_scan disagrees with its plain version at {label}'s "
+                                   f"shape")
+        ms = graph_ms(lambda: ssd.ssd_scan(x, dtv, A, B_, C, chunk=chunk), 20)
+        plain_ms = graph_ms(lambda: plain_ssd(x, dtv, A, B_, C, chunk), 5)
+        es = x.element_size()
+        nbytes = (2 * x.numel() + B_.numel() + C.numel()) * es + (dtv.numel() + A.numel()) * 4 \
+            + Bb * nh * hd * ds * 4
+        flops = ssd_flops(Bb, S, nh, hd, ds, chunk)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[BF16] * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log("kernel", f"ssd_scan {label} Bb={Bb} S={S} nh={nh} hd={hd} g={g} ds={ds} "
+                      f"chunk={chunk}, strided x/B/C: " + "; ".join(checks)
+                      + f"; bf16 graph_ms kernel {ms:.4f}, plain {plain_ms:.4f}, no library "
+                      f"call; bound {bound_ms * 1e3:.2f} us ({by}: {nbytes / 1e6:.2f} MB, "
+                      f"{flops / 1e9:.3f} GFLOP), "
+                      f"{bound_ms / ms:.2%} of the bound; "
+                      f"{_plan_text(ssd.launch_plan(Bb, nh, hd, ds, chunk, BF16), _sms())}; {smi}")
+
+
+def phase_kernel(seed: int, smi: str) -> list:
+    kernels = [kernel_flash(seed), kernel_ssd(seed)]
+    kernel_family(seed, smi)
+    return kernels
 
 
 def reset_counts():
@@ -579,23 +716,42 @@ def read_counts() -> dict:
 
 
 def phase_serve(arch: str, seed: int) -> dict:
+    """One serve path at full width, bf16: a prefill through the hand kernels,
+    then ``generate``. Returns the kernel counts of the path and the model
+    (config, parameters, prefill batch)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.models.model import init_params
     dev = torch.device("cuda")
     cfg = get_config(arch)
-    kernel, mixer = PATH_KERNEL[arch]
+    if arch in SERVE_LAYERS:
+        cfg = cfg.replace(num_layers=SERVE_LAYERS[arch])
+    want = {MIXER_KERNEL[ch]: cfg.pattern.count(ch) * cfg.num_periods for ch in MIXER_KERNEL}
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size,
-                                                   (SERVE_BATCH, SERVE_PROMPT[arch]))
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT[arch]))
     batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    n_prefix = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    if n_prefix:                                  # the stubbed frontend's embeddings
+        batch["prefix"] = torch.as_tensor(rng.standard_normal(
+            (SERVE_BATCH, n_prefix, cfg.d_model)).astype(np.float32), device=dev)
     prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"), None)
-    mixers = (f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_head_dim}, d_state {cfg.ssm_state}"
-              if mixer == "M" else f"{cfg.num_heads}/{cfg.num_kv_heads} heads")
-    log("serve", f"{arch} full width: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-                 f"{mixers}, vocab {cfg.vocab_size}, "
-                 f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}; prompts {tuple(prompts.shape)}")
+    mixers = []
+    if "A" in cfg.pattern:
+        mixers.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}")
+    if "M" in cfg.pattern:
+        mixers.append(f"{cfg.ssm_nheads} SSM heads of {cfg.ssm_head_dim}, d_state "
+                      f"{cfg.ssm_state}")
+    if cfg.num_experts:
+        mixers.append(f"{cfg.num_experts} experts top-{cfg.experts_per_token} of d_ff "
+                      f"{cfg.d_ff} every {cfg.moe_every} layer(s), capacity factor "
+                      f"{cfg.capacity_factor:g}")
+    log("serve", f"{arch} full width: {cfg.num_layers} layers ({cfg.pattern} x "
+                 f"{cfg.num_periods}), d_model {cfg.d_model}, {', '.join(mixers)}, vocab "
+                 f"{cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in {cfg.dtype}; prompts "
+                 f"{tuple(prompts.shape)}"
+                 + (f" behind a {n_prefix}-token {cfg.frontend} prefix" if n_prefix else ""))
 
     times = []
     for _ in range(6):                       # the first call loads the library and warms up
@@ -612,18 +768,19 @@ def phase_serve(arch: str, seed: int) -> dict:
     reset_counts()
     logits = prefill(params, batch)
     torch.cuda.synchronize()
-    after_prefill = read_counts()[kernel]
+    after_prefill = read_counts()
     stats: dict = {}
-    out = serve.generate(cfg, params, prompts, SERVE_GEN, stats=stats)
+    out = serve.generate(cfg, params, prompts, SERVE_GEN, prefix=batch.get("prefix"),
+                         stats=stats)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
 
-    n_layers = cfg.pattern.count(mixer) * cfg.num_periods
-    if after_prefill != n_layers:
-        raise RuntimeError(f"prefill launched {kernel} {after_prefill} times, "
-                           f"not once per layer ({n_layers})")
-    if counts[kernel] != after_prefill:
-        raise RuntimeError(f"generate launched {kernel}: its prompt is stepped through decode")
+    if after_prefill != want:
+        raise RuntimeError(f"prefill launched {after_prefill}, not once per layer of each "
+                           f"kernel's mixer ({want})")
+    if counts != after_prefill:
+        raise RuntimeError(f"generate launched a kernel ({counts} after {after_prefill}): its "
+                           f"prompt is stepped through decode")
     if tuple(logits.shape) != (SERVE_BATCH, 1, cfg.vocab_size) or \
             not torch.isfinite(logits.float()).all():
         raise RuntimeError(f"prefill logits are malformed: {tuple(logits.shape)}")
@@ -632,21 +789,29 @@ def phase_serve(arch: str, seed: int) -> dict:
         raise RuntimeError(f"generate gave {tuple(out.shape)} or tokens out of range")
     agree = int((logits[:, -1].argmax(-1) == out[:, 0]).sum())
     decode_ms = stats["decode_s"] / stats["decode_steps"] * 1e3
-    log("serve", f"prefill_ms {prefill_ms:.3f} (median of {len(times) - 1}: "
-                 f"{', '.join(f'{t:.3f}' for t in times[1:])}); {kernel} launches "
-                 f"in one prefill {after_prefill}")
-    log("serve", f"generate: prompt stepped through decode in {stats['prefill_s']:.3f} s "
+    log("serve", f"{arch} prefill_ms {prefill_ms:.3f} (median of {len(times) - 1}: "
+                 f"{', '.join(f'{t:.3f}' for t in times[1:])}); kernel launches in one prefill "
+                 f"{after_prefill}")
+    log("serve", f"{arch} generate: prompt stepped through decode in {stats['prefill_s']:.3f} s "
                  f"({prompts.size / stats['prefill_s']:.1f} tok/s), "
                  f"decode_ms_per_step {decode_ms:.3f}, "
                  f"{SERVE_BATCH * SERVE_GEN / stats['decode_s']:.1f} generated tok/s, "
                  f"max_memory_allocated {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
                  f"allocated before the prefill); "
                  f"output {tuple(out.shape)}; sample {out[0, :8].tolist()}")
+    if cfg.num_experts:
+        expert_bytes = sum(t.numel() * t.element_size()
+                           for n, t in _named_leaves(params) if ".ffn.w_" in n and
+                           t.dim() == 4)
+        log("serve", f"{arch} decode reads every expert's weights each step (every expert runs "
+                     f"its C >= 4 slots): {expert_bytes / 1e9:.3f} GB, "
+                     f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms a step at 3.35 TB/s, "
+                     f"against decode_ms_per_step {decode_ms:.3f}")
     log("serve", f"prefill argmax equals the first generated token in {agree} of "
                  f"{SERVE_BATCH} rows (reported, not gated: bf16 prefill and stepped decode "
                  f"round at different places)")
-    log("serve", f"kernel launches on the main path: {counts}")
-    return counts, (cfg, params, batch["tokens"])
+    log("serve", f"kernel launches on the {arch} path: {counts}")
+    return counts, (cfg, params, batch)
 
 
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "cublas", "addmm", "aten::mm", "aten::bmm")
@@ -690,21 +855,24 @@ def profile_window(fn, top: int = 8) -> dict:
             "groups_ms": groups, "top": rows[:top]}
 
 
-def phase_profile(cfg, params, tokens, decode_steps: int = 8):
+def phase_profile(cfg, params, batch, decode_steps: int = 8):
     from repro_torch.launch import steps
     from repro_torch.models.model import init_cache
     prefill = steps.make_prefill_step(cfg.replace(attn_impl="pallas"), None)
     serve_step = steps.make_serve_step(cfg, None)
+    tokens = batch["tokens"]
     B, S = tokens.shape
+    if "prefix" in batch:
+        S += batch["prefix"].shape[1]
     cache = init_cache(cfg, B, S + decode_steps, tokens.device)
 
-    def decode_window():                          # the steps after a prompt of S tokens
+    def decode_window():                          # the steps after a prompt of S positions
         cur = tokens[:, :1]
         for i in range(decode_steps):
             cur, _ = serve_step(params, cache, cur, S + i)
 
-    for label, fn in ((f"prefill ({B}, {S})", lambda: prefill(params, {"tokens": tokens})),
-                      (f"decode x{decode_steps}", decode_window)):
+    for label, fn in ((f"{cfg.name} prefill ({B}, {S})", lambda: prefill(params, batch)),
+                      (f"{cfg.name} decode x{decode_steps}", decode_window)):
         res = profile_window(fn)
         log("profile", f"{label}: wall {res['wall_ms']:.3f} ms without the profiler; kernel "
                        f"time {res['busy_ms']:.3f} ms in {res['launches']} launches, busy "
@@ -794,8 +962,15 @@ def train_flops_per_token(cfg, n_params: int, seq: int) -> float:
     tied table is the head's matmul and counts once) plus 6 H hd S for each
     attention layer (Q Kᵀ and P V over the causal half of S keys, forward
     and backward). Recomputation under checkpointing is not counted, nor is
-    the SSD scan's own arithmetic."""
+    the SSD scan's own arithmetic. In an MoE layer only the K experts a token
+    is routed to count (N less (E - K) / E of the expert weights), not the
+    capacity's empty or dropped slots, nor the router's softmax."""
     n = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    if cfg.num_experts:
+        n_moe = sum(j % cfg.moe_every == cfg.moe_every - 1
+                    for j in range(len(cfg.pattern))) * cfg.num_periods
+        expert = n_moe * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff
+        n -= expert * (cfg.num_experts - cfg.experts_per_token) / cfg.num_experts
     n_attn = cfg.pattern.count("A") * cfg.num_periods
     return 6.0 * n + 6.0 * n_attn * cfg.num_heads * cfg.resolved_head_dim * seq
 
@@ -854,7 +1029,7 @@ def _update_rounds_away(opt, p, mu, nu) -> bool:
     return bool(mu.abs().max() > 0) and torch.equal(target.to(p.dtype), p)
 
 
-def phase_train(arch: str, seed: int):
+def phase_train(arch: str, seed: int, layers: int | None = None):
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.launch.steps import StepOptions, make_train_step
@@ -862,6 +1037,8 @@ def phase_train(arch: str, seed: int):
     from repro_torch.optim.adam import AdamW
     dev = torch.device("cuda")
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     B, S = TRAIN_SHAPE[arch]
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -898,7 +1075,7 @@ def phase_train(arch: str, seed: int):
 
     before = [t.detach().clone() for _, t in named]
     reset_counts()
-    losses, gnorms, times = [], [], []
+    losses, gnorms, times, auxes = [], [], [], []
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -907,6 +1084,7 @@ def phase_train(arch: str, seed: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         gnorms.append(float(m["grad_norm"]))
+        auxes.append(float(m["aux"]))
         if i == 0:          # gate 1b: every parameter moved in the first step
             moments = zip(_named_leaves(opt_state["mu"]), _named_leaves(opt_state["nu"]))
             still, rounded = [], []
@@ -929,12 +1107,14 @@ def phase_train(arch: str, seed: int):
     log("train", f"losses {', '.join(f'{x:.4f}' for x in losses)} (ln V = "
                  f"{np.log(cfg.vocab_size):.4f}; the gradient check's loss of the first batch "
                  f"{float(loss0.detach()):.4f}); grad norms "
-                 f"{', '.join(f'{x:.3f}' for x in gnorms)}")
+                 f"{', '.join(f'{x:.3f}' for x in gnorms)}; MoE aux "
+                 f"{', '.join(f'{x:.5f}' for x in auxes)}")
     log("train", f"train_step_ms {step_ms:.3f} (median of steps 2-{TRAIN_STEPS}: "
                  f"{', '.join(f'{t:.3f}' for t in times[1:])}; first step {times[0]:.3f}); "
                  f"tokens/s {tok_s:.1f}; mfu {mfu:.2%} (model FLOPs "
                  f"{train_flops_per_token(cfg, n_params, S) * B * S / 1e12:.3f} TFLOP a step = "
-                 f"(6 N + 6 L_attn H hd S) x tokens, N without an untied input embedding, "
+                 f"(6 N + 6 L_attn H hd S) x tokens, N without an untied input embedding"
+                 f"{', the active experts only' if cfg.num_experts else ''}, "
                  f"against 989 TFLOP/s bf16 dense); "
                  f"max_memory_allocated {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
                  f"allocated before the phase)")
@@ -958,6 +1138,73 @@ def phase_train(arch: str, seed: int):
     return step_ms
 
 
+def _routes(cfg, params, batch) -> list:
+    """Every MoE layer's routing in one forward pass, in layer order, on the
+    CPU: (chosen experts, kept, router probabilities). ``moe.route`` is
+    wrapped for the pass to record what each layer routed."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import forward
+    got, orig = [], moe.route
+
+    def record(*a, **kw):
+        r = orig(*a, **kw)
+        got.append((r.e_idx.cpu(), r.keep.cpu(), r.probs.detach().cpu()))
+        return r
+
+    moe.route = record
+    try:
+        with torch.no_grad():
+            forward(cfg, params, batch, remat=False)
+    finally:
+        moe.route = orig
+    return got
+
+
+def _token_ce(cfg, params, batch):
+    """Each token's cross-entropy (B, S), from one forward pass, on the CPU."""
+    from repro_torch.models.model import forward
+    with torch.no_grad():
+        h, _, n_prefix = forward(cfg, params, batch, remat=False)
+        w = params["embed"].T if cfg.tie_embeddings else params["head"]
+        logits = (h[:, n_prefix:] @ w).float()
+        return F.cross_entropy(logits.transpose(1, 2), batch["labels"].long(),
+                               reduction="none").cpu()
+
+
+def route_parity(cfg, params, batch_of) -> tuple:
+    """The routing of every MoE layer on the card against the CPU, from the
+    same parameters and batch (``batch_of(device)``). Returns (number of
+    assignments whose expert differs, number whose kept slot alone differs,
+    (B, S) mask of the tokens whose routes agree in every layer and in no
+    earlier position of their row). Raises where a chosen expert differs
+    without a near-tie on the CPU, or a kept slot differs in a layer and
+    group where no choice did."""
+    card = _routes(cfg, _to(params, "cuda"), batch_of("cuda"))
+    cpu = _routes(cfg, _to(params, "cpu"), batch_of("cpu"))
+    B, S = batch_of("cpu")["tokens"].shape
+    n_prefix = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    agree = torch.ones(B * (n_prefix + S), dtype=torch.bool)
+    flips = followers = 0
+    for layer, ((e1, k1, _), (e0, k0, p0)) in enumerate(zip(card, cpu, strict=True)):
+        diff_e = e1 != e0
+        for g, t, k in diff_e.nonzero().tolist():
+            a, b = p0[g, t, e1[g, t, k]].item(), p0[g, t, e0[g, t, k]].item()
+            if abs(a - b) > ROUTE_TIE_RTOL * max(a, b):
+                raise RuntimeError(f"layer {layer}, token {t}, slot {k}: the card chose expert "
+                                   f"{e1[g, t, k].item()} ({a:.9g} on the CPU), the CPU "
+                                   f"{e0[g, t, k].item()} ({b:.9g}): not a near-tie")
+        diff_k = (k1 != k0) & ~diff_e
+        for g in range(e1.shape[0]):
+            if diff_k[g].any() and not diff_e[g].any():
+                raise RuntimeError(f"layer {layer}, group {g}: kept slots differ where no "
+                                   f"choice did")
+        flips += int(diff_e.sum())
+        followers += int(diff_k.sum())
+        agree &= ~(diff_e | (k1 != k0)).any(-1).reshape(-1)
+    agree = agree.reshape(B, n_prefix + S)[:, n_prefix:]
+    return flips, followers, agree.int().cumprod(dim=1).bool()
+
+
 def train_parity(arch: str, seed: int):
     """One f32 train step at full width and 2 layers on the card against the
     same step on the CPU, from the same parameters and batch: the loss and
@@ -978,6 +1225,14 @@ def train_parity(arch: str, seed: int):
     opt = AdamW(lr=TRAIN_LR)
     options = StepOptions(loss_chunk=TRAIN_PARITY_CHUNK)
     step = make_train_step(cfg, opt, None, options)
+    flips = 0
+    if cfg.num_experts:
+        flips, followers, agree = route_parity(cfg, params, lambda d: ds.device_batch(0, d))
+        log("train", f"parity {arch} routing, card against CPU, {cfg.num_layers} layers of "
+                     f"{cfg.num_experts} experts top-{cfg.experts_per_token}: {flips} "
+                     f"assignments chose another expert (each a near-tie on the CPU, within "
+                     f"{ROUTE_TIE_RTOL:g} relative), {followers} kept another slot after them; "
+                     f"{int(agree.sum())} of {agree.numel()} tokens route alike")
     out = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -1013,6 +1268,16 @@ def train_parity(arch: str, seed: int):
                  for a, b in zip(pc, pr))
     ok = (loss_err <= TRAIN_LOSS_RTOL and all(bool(torch.isfinite(g).all()) for g in gc)
           and g_err[g_worst] <= TRAIN_GRAD_TOL and u_err[u_worst] <= TRAIN_PARAM_TOL)
+    if flips:
+        # on top of the whole loss and gradients: the tokens whose routes
+        # agree, each its own loss
+        ce = [_token_ce(cfg, _to(params, d), ds.device_batch(0, d)) for d in ("cuda", "cpu")]
+        tok_err = ((ce[0] - ce[1]).abs() / ce[1].abs())[agree].max().item()
+        ok = ok and tok_err <= TRAIN_LOSS_RTOL
+        log("train", f"parity {arch}: routes flipped, so the gate also holds the "
+                     f"{int(agree.sum())} tokens that route alike (and follow no other route in "
+                     f"their row): each token's loss within {tok_err:.3g} relative (tol "
+                     f"{TRAIN_LOSS_RTOL:g}) {'ok' if tok_err <= TRAIN_LOSS_RTOL else 'FAILED'}")
     log("train", f"parity {arch} full width, {TRAIN_PARITY_LAYERS} layers, f32, TF32 off, batch "
                  f"{TRAIN_PARITY_BATCH} x {TRAIN_PARITY_SEQ}, one step on the card ({sc:.1f} s) vs "
                  f"the CPU ({sr:.1f} s): loss {lc:.6f} vs {lr:.6f}, relative {loss_err:.3g} (tol "
@@ -1211,7 +1476,10 @@ def phase_dp(seed: int, smi: str):
     ``make_train_step`` runs before clipping and AdamW) under
     ``baseline_rules(make_host_mesh([cuda:0] * k))`` against one device's,
     and one ``make_train_step`` of each, loss and gradient norm; full-width
-    qwen2-1.5b and mamba2-130m at 4 layers, f32. Then ``generate`` over
+    qwen2-1.5b and mamba2-130m at 4 layers and olmoe-1b-7b at 2, f32. One
+    device runs under the same rules, which pick the MoE group count (as
+    ``repro``'s step on one device would), and the data-parallel step forms
+    the aux loss with the whole batch's density. Then ``generate`` over
     ``[cuda:0] * 2`` against one device's tokens."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
@@ -1219,10 +1487,11 @@ def phase_dp(seed: int, smi: str):
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import init_params
     from repro_torch.optim.adam import AdamW, leaves
+    from repro_torch.parallel.sharding import axis_rules
     dev = torch.device("cuda", 0)
     opt = AdamW(lr=TRAIN_LR)
-    for arch in (QWEN, MAMBA):
-        cfg = get_config(arch).replace(dtype="float32", num_layers=DP_LAYERS)
+    for arch, n_layers in DP_ARCH_LAYERS.items():
+        cfg = get_config(arch).replace(dtype="float32", num_layers=n_layers)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         rng = np.random.default_rng(seed)
         rows_max = max(r for _, r in DP_CASES)
@@ -1233,18 +1502,28 @@ def phase_dp(seed: int, smi: str):
             batch = {k: v[:rows] for k, v in full.items()}
             rules = steps.baseline_rules(mesh_mod.make_host_mesh([dev] * n))
             t0 = time.perf_counter()
-            l1, _, g1 = steps.make_grad_step(cfg, None)(params, batch)
-            ln, _, gn = steps.make_grad_step(cfg, rules)(params, batch)
+            with axis_rules(rules):
+                l1, m1, g1 = steps.make_grad_step(cfg, None)(params, batch)
+            ln, mn, gn = steps.make_grad_step(cfg, rules)(params, batch)
             torch.cuda.synchronize(dev)
             took = time.perf_counter() - t0
             g_err = max(_rel(a, b) for a, b in zip(leaves(gn), leaves(g1), strict=True))
             l_err = abs(float(ln) - float(l1)) / abs(float(l1))
+            moe_text = ""
+            if cfg.num_experts:
+                a_err = abs(float(mn["aux"]) - float(m1["aux"])) / abs(float(m1["aux"]))
+                r_err = max(_rel(a, b) for (n_, a), (_, b) in zip(
+                    _named_leaves(gn), _named_leaves(g1), strict=True) if n_.endswith("router"))
+                l_err = max(l_err, a_err)
+                moe_text = (f", aux {float(mn['aux']):.6f} rel {a_err:.3g}, router gradient "
+                            f"{r_err:.3g}")
             finite = all(bool(torch.isfinite(g).all()) for g in leaves(gn))
             del g1, gn
             m = {}
             for key, r in (("one", None), ("dp", rules)):
                 p = _to(params, dev)
-                _, _, m[key] = steps.make_train_step(cfg, opt, r)(p, opt.init(p), 0, batch)
+                with axis_rules(rules):
+                    _, _, m[key] = steps.make_train_step(cfg, opt, r)(p, opt.init(p), 0, batch)
                 del p
             sl_err = abs(float(m["dp"]["loss"]) - float(m["one"]["loss"])) / abs(
                 float(m["one"]["loss"]))
@@ -1254,7 +1533,8 @@ def phase_dp(seed: int, smi: str):
             ok = finite and max(g_err, l_err, sl_err, gn_err) <= DP_TOL
             split = "split" if rows % n == 0 else "replicated"
             lines.append(f"[cuda:0] x {n}, batch {rows} x {DP_SEQ} ({split}): loss rel "
-                         f"{l_err:.3g}, gradients max rel {g_err:.3g}; train step loss rel "
+                         f"{l_err:.3g}{moe_text}, gradients max rel {g_err:.3g}; train step "
+                         f"loss rel "
                          f"{sl_err:.3g}, grad_norm rel {gn_err:.3g}; {took:.3f} s "
                          f"{'ok' if ok else 'FAILED'}")
             if not ok:
@@ -1272,7 +1552,8 @@ def phase_dp(seed: int, smi: str):
         served = []
         for rows in DP_SERVE_ROWS:
             prompts = rng.integers(0, cfg.vocab_size, (rows, DP_SERVE_PROMPT))
-            one = generate(cfg, params, prompts, DP_SERVE_GEN)
+            with axis_rules(rules):
+                one = generate(cfg, params, prompts, DP_SERVE_GEN)
             stats: dict = {}
             two = generate(cfg, params, prompts, DP_SERVE_GEN, rules, stats=stats)
             same = two.shape == one.shape and torch.equal(two, one)
@@ -1410,6 +1691,90 @@ def pipeline_gate(dev, seed: int, smi: str):
     torch.cuda.empty_cache()
 
 
+def pipeline_gate_moe(dev, seed: int, smi: str):
+    """Both engines on an MoE model: full-width olmoe-1b-7b at 4 layers in
+    f32, batch 8 x 128, 1f1b and zb with AR and 2 shards a stage on
+    ``[cuda:0] * 4``, ``n_micro`` 2. Each shard routes its rows of a
+    microbatch as one group with its own aux loss, as ``repro``'s stages do,
+    so the eager engine is held to one device's mean of ``loss_fn`` over
+    those 4 row blocks; the compiled engine (unroll 1) to the eager engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.exec import CompiledPipelineRunner, PipelineRunner, split_model
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.optim.adam import from_leaves, leaves
+    cfg = get_config(OLMOE).replace(dtype="float32", num_layers=PIPE_GATE_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (PIPE_GATE_BATCH, PIPE_GATE_SEQ)),
+                                device=dev) for k in ("tokens", "labels")}
+    n, n_micro = 2, 2
+    blocks, rows = n * n_micro, PIPE_GATE_BATCH // (n * n_micro)
+    ps = [t.clone().requires_grad_(True) for t in leaves(params)]
+    loss = sum(loss_fn(cfg, from_leaves(params, ps),
+                       {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()},
+                       remat=False)[0] for i in range(blocks)) / blocks
+    ref = from_leaves(params, [g.detach() for g in torch.autograd.grad(loss, ps)])
+    ref_loss = float(loss.detach())
+    del ps, loss
+    lines, worst = [], 0.0
+    for sched in ("1f1b", "zb"):
+        plan = _two_stage_plan("allreduce", n, n_micro)
+        splits = plan.layer_splits(cfg.num_periods)
+        sp, fns, keys, tied = split_model(cfg, params, 2, splits=splits)
+        kw = dict(schedule=sched, n_micro=n_micro, mb_keys=keys, tied_ref=tied)
+        runner = PipelineRunner(fns, plan, [[dev] * n] * 2, **kw)
+        t0 = time.perf_counter()
+        grads, stats = runner.step(runner.place_params(sp), batch)
+        torch.cuda.synchronize(dev)
+        took = time.perf_counter() - t0
+        errs = {}
+        for u, (g, (lo, hi)) in enumerate(zip(grads, splits, strict=True)):
+            for name, a in _named_leaves(g):
+                b = _leaf(ref, name, lo, hi)
+                if b.numel():
+                    errs[f"{u}.{name}"] = _rel(a, b)
+        g_err, l_err = max(errs.values()), abs(stats.loss - ref_loss) / abs(ref_loss)
+        r_err = max(v for k, v in errs.items() if k.endswith("router"))
+        scan = CompiledPipelineRunner(fns, plan, [[dev] * n] * 2, unroll=1, **kw)
+        sg, ss = scan.step(scan.place_params(sp), batch, record=True)
+        torch.cuda.synchronize(dev)
+        s_err = max(_rel(a, b) for x, y in zip(sg, grads, strict=True)
+                    for a, b in zip(leaves(x), leaves(y), strict=True) if b.numel())
+        sl_err = abs(ss.loss - stats.loss) / abs(stats.loss)
+        n_events = (3 if sched == "zb" else 2) * 2
+        worst = max(worst, g_err, l_err, s_err, sl_err)
+        ok = (max(g_err, l_err, s_err, sl_err) <= PIPE_GATE_TOL and ss.peak_stash == 2 * n_micro
+              and len(ss.events) == n_events and all(
+                  bool(torch.isfinite(x).all()) for gg in (grads, sg) for g in gg
+                  for x in leaves(g)))
+        lines.append(f"{sched}, allreduce x{n} a stage: eager loss rel {l_err:.3g}, gradients "
+                     f"max rel {g_err:.3g} (router {r_err:.3g}), peak_stash {stats.peak_stash}, "
+                     f"{took:.3f} s; scan (unroll 1) against eager: loss rel {sl_err:.3g}, "
+                     f"gradients {s_err:.3g}, peak_stash {ss.peak_stash}, events "
+                     f"{len(ss.events)}, graphs {len(scan._graphs)} {'ok' if ok else 'FAILED'}")
+        del grads, stats, runner, scan, sg, ss, sp
+        if not ok:
+            log("pipeline", "MoE gate: " + "; ".join(lines))
+            raise RuntimeError(f"pipeline {sched} on {OLMOE}: beyond {PIPE_GATE_TOL:g} of one "
+                               f"device's row blocks or of the eager engine")
+    log("pipeline", f"MoE gradient gate, {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
+                    f"layers of {cfg.num_experts} experts top-{cfg.experts_per_token}, "
+                    f"{cfg.dtype}, batch {PIPE_GATE_BATCH} x {PIPE_GATE_SEQ}, n_micro {n_micro}, "
+                    f"against one device's mean loss over the {blocks} row blocks the shards "
+                    f"route ({ref_loss:.6f}): " + "; ".join(lines) + f"; worst {worst:.3g} (tol "
+                    f"{PIPE_GATE_TOL:g}); {smi}")
+    del params, ref
+    torch.cuda.empty_cache()
+
+
+def _leaf(tree, name: str, lo: int, hi: int):
+    """Leaf ``name`` (dotted) of ``tree``; a ``blocks`` leaf cut to periods
+    [lo, hi)."""
+    for k in name.split("."):
+        tree = tree[k]
+    return tree[lo:hi] if name.startswith("blocks.") else tree
+
+
 def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True):
     """``run_pipeline`` as a user runs it, full-width, full-depth qwen2-1.5b
     in bf16, 3 steps, once with each engine: with ``searched``, the 2-stage
@@ -1536,13 +1901,15 @@ def main(argv=None) -> int:
         phase = "build"
         phase_build()
         phase = "kernel"
-        kernels = phase_kernel(args.seed)
+        kernels = phase_kernel(args.seed, smi)
         by_name = {k["name"]: k for k in kernels}
-        for arch in (QWEN, MAMBA):
+        for k in kernels:
+            k["launches"] = 0
+        for arch in SERVE_ARCHS:
             phase = "serve"
             counts, model = phase_serve(arch, args.seed)
-            name = PATH_KERNEL[arch][0]
-            by_name[name]["launches"] = counts[name]
+            for name, n in counts.items():
+                by_name[name]["launches"] += n
             phase = "profile"
             phase_profile(*model)
             del model
@@ -1555,7 +1922,8 @@ def main(argv=None) -> int:
         parity_ssd(args.seed)
         phase = "train"
         train_ms = {arch: phase_train(arch, args.seed) for arch in (QWEN, MAMBA)}
-        for arch in (QWEN, MAMBA):
+        train_ms[OLMOE] = phase_train(OLMOE, args.seed, layers=MOE_TRAIN_LAYERS)
+        for arch in (QWEN, MAMBA, OLMOE):
             train_parity(arch, args.seed)
         phase = "plan"
         graphs = {arch: plan_trace(arch, smi) for arch in (QWEN, MAMBA)}
@@ -1575,6 +1943,7 @@ def main(argv=None) -> int:
         reset_counts()
         dev = torch.device("cuda", 0)
         pipeline_gate(dev, args.seed, smi)
+        pipeline_gate_moe(dev, args.seed, smi)
         pipeline_run(dev, args.seed, train_ms[QWEN], smi)
         pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False)
         counts = read_counts()

@@ -16,7 +16,9 @@ batch dimension from the data inputs, as ``jax_export`` does:
 aten flattens the batch into other dims (``linear`` on (B, S, D) runs as
 ``view(B*S, D)`` -> ``mm`` -> ``view``), so each tensor carries the index
 of the dim whose outermost factor is the batch, through views, permutes,
-broadcasts and products, instead of ``jax_export``'s "dim 0 == batch size".
+broadcasts, gathers and products, instead of ``jax_export``'s "dim 0 ==
+batch size". The MoE dispatch gathers the batch's rows into expert slots,
+so the expert products are CONCAT and their weight gradients SUM.
 A linear rearrangement of partial sums over the batch (the ``stack`` of
 per-layer weight gradients that ``jax_export`` sees once inside the
 scanned layer body) stays Split.SUM.
@@ -215,6 +217,13 @@ def _out_bdims(name, args, ins, in_b, outs, batch):
         return [None], True                          # added into an unbatched buffer
     if name == "index" and len(in_b) > 1 and in_b[1] is not None:
         return [in_b[1]], False
+    if name == "index" and b0 == 0 and len(ins) == 2 and len(args[1]) == 1 \
+            and args[1][0] is not None:
+        # rows of the batch gathered into a table of slots (the MoE
+        # dispatch, x[slot_token] -> (E, G*C, D)): the batch runs along the
+        # table's innermost index dim, as it runs along jax_export's group
+        # dim when the groups are the batch's shards
+        return [ins[1].dim() - 1], False
     # pointwise and everything else: line the inputs up by broadcasting
     return [_broadcast_bdim(ins, in_b, o) if o.dim() else None for o in outs], False
 

@@ -3,8 +3,8 @@ port of ``repro.exec.model_split``.
 
 The decoder stack holds ``num_periods`` period-params (leading dim of every
 leaf under ``params["blocks"]``), so a stage is a contiguous period span plus
-the edges: stage 0 owns the embedding, the last stage owns the final norm,
-the head and the loss.
+the edges: stage 0 owns the embedding (and the frontend projection), the last
+stage owns the final norm, the head and the loss.
 
 Stage functions share one signature the engine understands:
 
@@ -13,7 +13,9 @@ Stage functions share one signature the engine understands:
 
 ``carry`` is ``(hidden (B, S, D), aux (B,))``: the MoE aux loss rides along
 as a per-example vector, so that it splits over a stage's data-parallel
-shards with the activations.
+shards with the activations. Each shard's MoE layers route its rows as one
+group, with that shard's aux loss, as ``repro``'s stages under ``shard_map``
+do.
 
 Tied embeddings: the head weight is the embedding matrix, which lives on
 stage 0. ``split_model`` then leaves the head out of the last stage's params;
@@ -35,7 +37,7 @@ TIED_HEAD = "tied_head"      # engine-injected key on the last stage
 def _first_stage(cfg: ModelConfig):
     def fn(p, carry, mb):
         del carry
-        x = model_mod.embed_tokens(cfg, p, mb["tokens"])
+        x, _, _ = model_mod.embed_inputs(cfg, p, mb)
         aux = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
         return _run_blocks(cfg, p, x, aux)
     return fn
@@ -53,7 +55,7 @@ def _run_blocks(cfg, p, x, aux):
     blocks = p.get("blocks")
     if blocks:
         pos = torch.arange(x.shape[1], device=x.device)
-        x, a = tf_mod.stack_fwd(cfg, blocks, x, pos, remat=False)
+        x, a, _ = tf_mod.stack_fwd(cfg, blocks, x, pos, remat=False)
         aux = aux + a                   # scalar broadcasts over (B,)
     return x, aux
 
@@ -105,10 +107,6 @@ def split_model(cfg: ModelConfig, params, n_stages: int, splits: list | None = N
     ``("embed", TIED_HEAD)`` when the head is tied to the stage-0 embedding,
     else None.
     """
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP: frontend stubs)")
     P = cfg.num_periods
     if splits is None:
         splits = [(s * P // n_stages, (s + 1) * P // n_stages) for s in range(n_stages)]
@@ -122,6 +120,9 @@ def split_model(cfg: ModelConfig, params, n_stages: int, splits: list | None = N
         if s == 0:
             p["embed"] = params["embed"]
             keys.append("tokens")
+            if cfg.frontend != "none":
+                p["frontend_proj"] = params["frontend_proj"]
+                keys.append("prefix")
             fn = _first_stage(cfg)
         else:
             fn = _mid_stage(cfg)

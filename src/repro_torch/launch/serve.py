@@ -32,9 +32,12 @@ def _sync(devices):
             torch.cuda.synchronize(d)
 
 
-def generate(cfg, params, prompts, gen_tokens: int, rules=None, stats: dict | None = None):
+def generate(cfg, params, prompts, gen_tokens: int, rules=None, prefix=None,
+             stats: dict | None = None):
     """prompts: (B, P) integer tokens. Returns (B, gen_tokens) int64 on the
-    parameters' device.
+    parameters' device. ``prefix`` is accepted as ``repro``'s ``generate``
+    accepts it and, as there, not fed: the cache counts a frontend's
+    ``cfg.frontend_tokens`` all the same.
 
     As in ``repro.launch.serve.generate``, the prompt is stepped through the
     decode path one token at a time to build the cache; the fused prefill is
@@ -49,15 +52,17 @@ def generate(cfg, params, prompts, gen_tokens: int, rules=None, stats: dict | No
     """
     device = params["embed"].device
     prompts = torch.as_tensor(prompts, dtype=torch.long, device=device)
+    del prefix
     B, P = prompts.shape
+    total = P + gen_tokens + (cfg.frontend_tokens if cfg.frontend != "none" else 0)
     devices = steps_mod.data_devices(cfg, rules) or [device]
     if len(devices) > 1:
-        shape = InputShape("generate", P + gen_tokens, B, "decode")
+        shape = InputShape("generate", total, B, "decode")
         spec = leaves(steps_mod.cache_shardings(cfg, shape, rules))[0].spec
         rows = B // len(devices) if len(spec) > 1 and spec[1] is not None else B
-        cache = [init_cache(cfg, rows, P + gen_tokens, d) for d in devices]
+        cache = [init_cache(cfg, rows, total, d) for d in devices]
     else:
-        cache = init_cache(cfg, B, P + gen_tokens, device)
+        cache = init_cache(cfg, B, total, device)
     step = steps_mod.make_serve_step(cfg, rules)
 
     _sync(devices)

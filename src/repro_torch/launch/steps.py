@@ -7,7 +7,12 @@ engine does: where the rules' batch axes span ``n > 1`` positions of the
 mesh, a step hands each position (a ``torch.device``, which may repeat)
 its replica of the parameters and its rows of the batch, split on dim 0
 where ``n`` divides it and replicated otherwise, as ``logical_spec``
-decides. The train step averages the per-shard gradients with
+decides. MoE layers route as ``repro``'s do under the rules: ``repro``
+groups the global batch's tokens by the rules' batch axes
+(``moe.num_groups``), and each device's rows are that many groups over the
+device count where the rows are split, all of them where they are
+replicated (``_local_groups``); the aux loss takes the top-1 density of the
+whole batch. The train step averages the per-shard gradients with
 ``parallel.sfb_dense.allreduce_grad`` and applies AdamW once, to the
 parameters on the first device. Rules that shard a parameter dim (a
 ``"model"`` axis of size > 1) are tensor parallelism, ROADMAP queue 1,
@@ -25,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.optim.adam import (
     AdamW, clip_by_global_norm, from_leaves, global_norm, leaves)
 from repro_torch.parallel.sfb_dense import allreduce_grad
@@ -125,6 +131,18 @@ def _scatter(rules, devices: list, tree: dict) -> list:
     return [{k: shard(v, i) for k, v in tree.items()} for i in range(n)]
 
 
+def _local_groups(rules, devices: list, batch: dict) -> int:
+    """The MoE group count of one device's rows: ``repro``'s count over the
+    global batch (every token of ``batch``, the prefix included) under the
+    rules, over the number of row shards."""
+    tokens = batch["tokens"]
+    T = tokens.numel() + (batch["prefix"].shape[0] * batch["prefix"].shape[1]
+                          if "prefix" in batch else 0)
+    with axis_rules(rules):
+        G = moe_mod.num_groups(T)
+    return G // len(devices) if _rows_split(rules, tokens) else G
+
+
 def _gather(rules, shards: list, like: torch.Tensor) -> torch.Tensor:
     """One device's shards back as one tensor on the first device: rows
     concatenated in device order where ``like`` (the full-batch input)
@@ -162,7 +180,15 @@ def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
     autograd, over the rules' data-parallel devices (module docstring). The
     loss and ``metrics`` (``ce``, ``aux``) are means over the shards, which
     is the global-batch mean: ``loss_fn`` is an unmasked mean over equal
-    shards. ``grads`` lie on the parameters' device."""
+    shards. ``grads`` lie on the parameters' device.
+
+    Under MoE, every shard's forward runs before any backward: each MoE
+    layer's aux loss, E sum_e density_e mean_probs_e, takes the density (a
+    top-1 share, no gradient) of the whole batch, the mean of the shards'
+    (``loss_fn``'s ``"moe"`` stats), so that the mean of the shards' aux is
+    ``repro``'s aux over the batch, gradient and all. A dense model has no
+    density to wait for: each shard's backward follows its forward, so that
+    one autograd graph is held at a time."""
     options = options if options is not None else StepOptions()
     devices = data_devices(cfg, rules)
 
@@ -179,27 +205,43 @@ def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
             loss, metrics = loss_of(params, batch)
         with torch.profiler.record_function("train/backward"):
             grads = from_leaves(params, torch.autograd.grad(loss, ps))
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        return loss.detach(), {k: metrics[k].detach() for k in ("ce", "aux")}, grads
 
     def data_parallel(params, batch):
         dev = leaves(params)[0].device
         n = len(devices)
-        shard_grads, losses, mets = [], [], []
+        groups = _local_groups(rules, devices, batch)
+
+        def backward(ps, metrics, density):
+            d = ps[0].device
+            aux = torch.zeros((), dtype=torch.float32, device=d)
+            for dens, (_, mean_probs) in zip(density, metrics["moe"], strict=True):
+                aux = aux + moe_mod.aux_loss(dens.to(d), mean_probs)
+            loss = metrics["ce"] + model_mod.MAX_SMOKE_AUX * aux
+            with torch.profiler.record_function("train/backward"):
+                grads = torch.autograd.grad(loss, ps)
+            return grads, loss.detach().to(dev), {"ce": metrics["ce"].detach().to(dev),
+                                                  "aux": aux.detach().to(dev)}
+
+        pending, done = [], []
         for d, mb in zip(devices, _scatter(rules, devices, batch), strict=True):
             ps = [t.detach().to(d).requires_grad_(True) for t in leaves(params)]
-            with torch.profiler.record_function("train/loss"):
-                loss, metrics = loss_of(from_leaves(params, ps), mb)
-            with torch.profiler.record_function("train/backward"):
-                shard_grads.append(torch.autograd.grad(loss, ps))
-            losses.append(loss.detach().to(dev))
-            mets.append({k: v.detach().to(dev) for k, v in metrics.items()})
-            del ps, loss, metrics
+            with torch.profiler.record_function("train/loss"), moe_mod.routing(groups):
+                _, metrics = loss_of(from_leaves(params, ps), mb)
+            if metrics["moe"]:
+                pending.append((ps, metrics))
+            else:
+                done.append(backward(ps, metrics, ()))
+        density = [torch.stack([dens.to(dev) for dens, _ in layer]).mean(0)
+                   for layer in zip(*(m["moe"] for _, m in pending))]
+        while pending:
+            done.append(backward(*pending.pop(0), density))
+        del ps, metrics
         with torch.profiler.record_function("train/allreduce"):
             grads = [allreduce_grad(list(parts), out=0).to(dev) / n
-                     for parts in zip(*shard_grads, strict=True)]
-        del shard_grads
-        loss = torch.stack(losses).mean()
-        metrics = {k: torch.stack([m[k] for m in mets]).mean() for k in mets[0]}
+                     for parts in zip(*(g for g, _, _ in done), strict=True)]
+        loss = torch.stack([lo for _, lo, _ in done]).mean()
+        metrics = {k: torch.stack([m[k] for _, _, m in done]).mean() for k in ("ce", "aux")}
         return loss, metrics, from_leaves(params, grads)
 
     return one_device if devices is None else data_parallel
@@ -270,14 +312,15 @@ def make_pipeline_train_step(opt: AdamW, runner, options: StepOptions | None = N
 def make_prefill_step(cfg: ModelConfig, rules: AxisRules | None):
     """(params, batch) -> last-position logits (B, 1, V) on the parameters'
     device; over the rules' data-parallel devices, each device prefills its
-    rows."""
+    rows (MoE layers in ``_local_groups``)."""
     devices = data_devices(cfg, rules)
 
     def prefill(params, batch):
         if devices is None:
             return model_mod.prefill_step(cfg, params, batch)
-        outs = [model_mod.prefill_step(cfg, _replica(params, d), mb)
-                for d, mb in zip(devices, _scatter(rules, devices, batch), strict=True)]
+        with moe_mod.routing(_local_groups(rules, devices, batch)):
+            outs = [model_mod.prefill_step(cfg, _replica(params, d), mb)
+                    for d, mb in zip(devices, _scatter(rules, devices, batch), strict=True)]
         return _gather(rules, outs, batch["tokens"]).to(leaves(params)[0].device)
     return prefill
 
@@ -287,7 +330,8 @@ def make_serve_step(cfg: ModelConfig, rules: AxisRules | None):
     token (B, 1) and the cache, updated in place. Over the rules'
     data-parallel devices ``cache`` is a list, one cache a device holding
     that device's rows (``cache_shardings``), and each device decodes its
-    rows; the tokens come back on the parameters' device in device order."""
+    rows (MoE layers in ``_local_groups``); the tokens come back on the
+    parameters' device in device order."""
     devices = data_devices(cfg, rules)
 
     def one(params, cache, tokens, pos):
@@ -298,7 +342,8 @@ def make_serve_step(cfg: ModelConfig, rules: AxisRules | None):
         if devices is None:
             return one(params, cache, tokens, pos)
         shards = _scatter(rules, devices, {"tokens": tokens})
-        nxt = [one(_replica(params, d), c, mb["tokens"], pos)[0]
-               for d, c, mb in zip(devices, cache, shards, strict=True)]
+        with moe_mod.routing(_local_groups(rules, devices, {"tokens": tokens})):
+            nxt = [one(_replica(params, d), c, mb["tokens"], pos)[0]
+                   for d, c, mb in zip(devices, cache, shards, strict=True)]
         return _gather(rules, nxt, tokens).to(leaves(params)[0].device), cache
     return serve

@@ -1,7 +1,11 @@
-"""Top-level LM: embeddings, decoder stack (attention and Mamba-2 layers),
-tied or untied head, the training loss, prefill and decode steps.
+"""Top-level LM: embeddings, decoder stack (attention, Mamba-2 and MoE
+layers), tied or untied head, the training loss, prefill and decode steps.
 
-Audio and vision frontends are not ported yet (ROADMAP: frontend stubs).
+Audio and vision frontends are stubs, as in ``repro``: ``input_specs``
+gives precomputed frame or patch embeddings (``prefix``, (B,
+cfg.frontend_tokens, D)); the decoder consumes them, projected by
+``frontend_proj``, ahead of the tokens, and the loss covers the token
+positions only.
 """
 from __future__ import annotations
 
@@ -23,10 +27,6 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP: frontend stubs)")
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
         "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.02),
@@ -35,6 +35,9 @@ def model_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((D, V), ("embed", "vocab"), scale=0.02)
+    if cfg.frontend != "none":
+        # learned projection of the (stubbed) frontend embeddings
+        defs["frontend_proj"] = ParamDef((D, D), ("embed", "embed"))
     return defs
 
 
@@ -63,32 +66,52 @@ def _head(cfg, params, h):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    """Token embeddings (B, S, D), scaled by sqrt(d_model): the input of the
-    decoder stack, in ``forward`` and in a pipeline's first stage."""
+    """Token embeddings (B, S, D), scaled by sqrt(d_model)."""
     return params["embed"][tokens] * (cfg.d_model ** 0.5)
+
+
+def embed_inputs(cfg: ModelConfig, params, batch):
+    """The decoder stack's input, in ``forward`` and in a pipeline's first
+    stage: the token embeddings, behind the projected ``batch["prefix"]``
+    where the config has a frontend. Returns (x, pos, n_prefix)."""
+    x = embed_tokens(cfg, params, batch["tokens"])
+    n_prefix = 0
+    if cfg.frontend != "none":
+        prefix = batch["prefix"].to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([prefix, x], dim=1)
+        n_prefix = prefix.shape[1]
+    return x, torch.arange(x.shape[1], device=x.device), n_prefix
+
+
+def _hidden(cfg, params, batch, remat, remat_policy):
+    """``forward``'s (hidden, aux, n_prefix) and the MoE layers' stats."""
+    x, pos, n_prefix = embed_inputs(cfg, params, batch)
+    x, aux, stats = tf_mod.stack_fwd(cfg, params["blocks"], x, pos, remat=remat,
+                                     remat_policy=remat_policy)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, n_prefix, stats
 
 
 def forward(cfg: ModelConfig, params, batch, remat: bool = True,
             remat_policy: str = "full"):
-    """Full-sequence forward of ``batch["tokens"]`` (B, S). Returns (hidden
-    (B, S, D), aux loss, n_prefix); n_prefix is 0 until the frontends are
-    ported."""
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x, aux = tf_mod.stack_fwd(cfg, params["blocks"], x, pos, remat=remat,
-                              remat_policy=remat_policy)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, 0
+    """Full-sequence forward of ``batch["tokens"]`` (B, S) (and ``"prefix"``
+    where the config has a frontend). Returns (hidden (B, n_prefix + S, D),
+    aux loss, n_prefix)."""
+    return _hidden(cfg, params, batch, remat, remat_policy)[:3]
 
 
 def loss_fn(cfg: ModelConfig, params, batch, remat: bool = True,
             loss_chunk: int = 0, remat_policy: str = "full"):
-    """Mean next-token CE (+ MoE aux). Returns (loss, {"ce", "aux"}).
+    """Mean next-token CE (+ MoE aux). Returns (loss, {"ce", "aux", "moe"}),
+    ``"moe"`` every MoE layer's ``(density, mean_probs)`` in layer order
+    (empty without MoE), from which a data-parallel step forms the aux loss
+    of the whole batch.
 
     ``loss_chunk`` > 0 computes the logits in sequence chunks, each under a
     checkpoint, so neither the forward nor the backward pass holds (B, S, V)
     at once."""
-    h, aux, _ = forward(cfg, params, batch, remat=remat, remat_policy=remat_policy)
+    h, aux, n_prefix, stats = _hidden(cfg, params, batch, remat, remat_policy)
+    if n_prefix:
+        h = h[:, n_prefix:]
     labels = batch["labels"].long()
     S = h.shape[1]
     if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
@@ -103,7 +126,7 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = True,
         ce = tot / n
     else:
         ce = cross_entropy(_head(cfg, params, h), labels)
-    return ce + MAX_SMOKE_AUX * aux, {"ce": ce, "aux": aux}
+    return ce + MAX_SMOKE_AUX * aux, {"ce": ce, "aux": aux, "moe": stats}
 
 
 # ------------------------------------------------------------- decoding
@@ -147,18 +170,18 @@ def prefill_step(cfg: ModelConfig, params, batch):
 
 def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
     """Every model input of ``shape`` as a tensor on the ``meta`` device.
-    Tokens and labels are int64, the port's index dtype."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported yet "
-            "(ROADMAP: frontend stubs)")
+    Tokens and labels are int64, the port's index dtype; a frontend's prefix
+    takes ``cfg.frontend_tokens`` of the sequence, in the model's dtype."""
     B, S = shape.global_batch, shape.seq_len
 
-    def spec(*dims):
-        return torch.empty(dims, dtype=torch.long, device="meta")
+    def spec(*dims, dtype=torch.long):
+        return torch.empty(dims, dtype=dtype, device="meta")
     if shape.kind == "decode":
         return {"tokens": spec(B, 1)}
-    specs = {"tokens": spec(B, S)}
+    n_tok = S - (cfg.frontend_tokens if cfg.frontend != "none" else 0)
+    specs = {"tokens": spec(B, n_tok)}
+    if cfg.frontend != "none":
+        specs["prefix"] = spec(B, cfg.frontend_tokens, cfg.d_model, dtype=torch_dtype(cfg))
     if shape.kind == "train":
-        specs["labels"] = spec(B, S)
+        specs["labels"] = spec(B, n_tok)
     return specs

@@ -344,6 +344,88 @@ def test_pipeline_engine_on_card_matches_single_device(schedule, sync, n_devices
     assert stats.peak_stash == 3 and {e[0] for e in stats.events} == {"F", "B"}
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"])
+def test_moe_fwd_on_card_matches_cpu(arch):
+    """One MoE layer of the reduced config in 2 groups at capacity factor 0.5
+    (assignments drop), in both combines, on the card against the CPU:
+    routing equal (experts, ranks, kept slots, slot tables), y 1e-5, aux
+    1e-6 (f32, TF32 off; the scatter combine's index_add sums in no fixed
+    order on the card), and no host synchronization (run inside a CUDA
+    graph capture, which refuses one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import axis_rules
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    for combine in ("gather", "scatter"):
+        cfg = get_reduced(arch).replace(dtype="float32", capacity_factor=0.5,
+                                        moe_combine=combine)
+        D, F, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        w = {"router": rng.standard_normal((D, E)) * 2 / np.sqrt(D),
+             "w_gate": rng.standard_normal((E, D, F)) / np.sqrt(D),
+             "w_up": rng.standard_normal((E, D, F)) / np.sqrt(D),
+             "w_down": rng.standard_normal((E, F, D)) / np.sqrt(F)}
+        x = rng.standard_normal((4, 32, D))
+        out = {}
+        for d in (torch.device("cpu"), dev):
+            p = {k: torch.as_tensor(v, dtype=torch.float32, device=d) for k, v in w.items()}
+            xd = torch.as_tensor(x, dtype=torch.float32, device=d)
+            rules = steps.baseline_rules(mesh.make_host_mesh([d] * 2))
+            with axis_rules(rules):
+                if d.type == "cuda":
+                    moe.moe_layer(cfg, p, xd)                       # warm-up
+                    torch.cuda.synchronize()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        y, r = moe.moe_layer(cfg, p, xd)
+                    graph.replay()
+                    torch.cuda.synchronize()
+                else:
+                    y, r = moe.moe_layer(cfg, p, xd)
+            out[d.type] = (y.cpu(), float(moe.aux_loss(r.density, r.mean_probs)),
+                           {k: getattr(r, k).cpu() for k in ("e_idx", "pos", "keep", "idx",
+                                                              "filled")})
+        (yc, ac, rc), (yg, ag, rg) = out["cpu"], out["cuda"]
+        assert not bool(rc["keep"].all())
+        for k in rc:
+            assert torch.equal(rg[k], rc[k]), (combine, k)
+        assert (yg - yc).abs().max().item() <= 1e-5, combine
+        assert abs(ag - ac) <= 1e-6, combine
+
+
+@pytest.mark.gpu
+def test_jamba_prefill_through_both_kernels_matches_plain():
+    """Reduced jamba's prefill with ``attn_impl="pallas"`` on the card (the
+    flash kernel on its attention layer, the SSD kernel on its Mamba layer,
+    state 16) against the plain route on the card, f32, TF32 off, 2e-3 (the
+    kernel-route tolerance of tests/test_extensions.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.model import init_params, prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = get_reduced("jamba-v0.1-52b").replace(dtype="float32", num_layers=4)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 256)),
+                             device=dev)
+    before = (fa_mod.flash_attention.launches, ssd_mod.ssd_scan.launches)
+    kern = prefill_step(cfg.replace(attn_impl="pallas"), params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launched = (fa_mod.flash_attention.launches - before[0],
+                ssd_mod.ssd_scan.launches - before[1])
+    plain = prefill_step(cfg, params, {"tokens": tokens})
+    assert launched == (cfg.pattern.count("A") * cfg.num_periods,
+                        cfg.pattern.count("M") * cfg.num_periods)
+    assert bool(torch.isfinite(kern).all())
+    assert (kern - plain).abs().max().item() <= 2e-3
+
+
 # (name, schedule, sync, devices a stage, n_micro, chunks a stage, unroll)
 SCAN_CASES = [
     ("1f1b", "1f1b", "allreduce", 1, 4, 1, 1),
@@ -354,12 +436,19 @@ SCAN_CASES = [
 ]
 
 
+# reduced configs as tests/test_torch_pipeline.py runs them: jamba at 4
+# layers (a Mamba layer and an attention layer with an MoE FFN a stage),
+# the MoE models at capacity factor 0.5, where assignments drop
+SCAN_ARCH_KW = {"mamba2-130m": {"ssm_chunk": 32}, "olmoe-1b-7b": {"capacity_factor": 0.5},
+                "jamba-v0.1-52b": {"ssm_chunk": 32, "num_layers": 4, "capacity_factor": 0.5}}
+SCAN_SEQ = {"mamba2-130m": 64, "jamba-v0.1-52b": 32}
+
+
 def _scan_setup(arch, sync, n, n_micro, V, devices):
     from repro_torch.configs import get_reduced
     from repro_torch.exec import StagePlan, StageSpec, split_model
     from repro_torch.models.model import init_params
-    kw = {"ssm_chunk": 32} if arch == "mamba2-130m" else {}
-    cfg = get_reduced(arch).replace(dtype="float32", **kw)
+    cfg = get_reduced(arch).replace(dtype="float32", **SCAN_ARCH_KW.get(arch, {}))
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     plan = StagePlan(
         stages=[StageSpec(i, i, [i], flops=1e9, param_bytes=0, grad_bytes=0, out_bytes=1e5,
@@ -374,7 +463,7 @@ def _scan_setup(arch, sync, n, n_micro, V, devices):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m", "olmoe-1b-7b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("case", [c[0] for c in SCAN_CASES])
 def test_scan_engine_captured_matches_uncaptured(case, arch):
     """The compiled engine on the card, each loop a CUDA graph captured at
@@ -403,7 +492,7 @@ def test_scan_engine_captured_matches_uncaptured(case, arch):
     scan, params = runners["scan"]
     state = [opt.init(p) for p in params]
     rng = np.random.default_rng(1)
-    seq = 64 if arch == "mamba2-130m" else 16
+    seq = SCAN_SEQ.get(arch, 16)
     for step in range(3):
         batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, seq)))
                  for k in ("tokens", "labels")}

@@ -8,15 +8,19 @@ together, as ``tests/test_torch_pipeline.py`` runs it: one computes the
 port builds, on a ``("data",)`` mesh of 4 and a ``("data", "model")`` mesh
 of 2 x 2; one an arch trains 4 steps of ``jax.jit(make_train_step(...))``
 under ``baseline_rules(make_host_mesh())`` at batch 8 (split over the 4
-devices) and batch 6 (replicated). The port takes the same initial
+devices) and batch 6 (replicated). Under these rules ``repro`` routes
+olmoe's MoE layers in 4 groups of the global batch's tokens, and its aux
+loss takes the top-1 density of the whole batch; the port's steps route
+each device's rows and form the aux loss to match. The port takes the same initial
 parameters (``models.convert.params_from_numpy``) and the same numpy
 batches, and trains under ``baseline_rules(make_host_mesh([cpu] * 4))``.
 
-Tolerances, f32: specs equal entry by entry; losses 1e-4 x max(1, |loss|)
-and every parameter leaf 1e-4 x max(1, max |p|) at each of the 4 steps;
-the port's data-parallel gradient against its one-device gradient 1e-4 x
-max(1, max |g|) (the shards are summed in another order); generated tokens
-equal.
+Tolerances, f32: specs equal entry by entry; losses and MoE aux losses
+1e-4 x max(1, |loss|) and every parameter leaf 1e-4 x max(1, max |p|) at
+each of the 4 steps; the port's data-parallel gradient against its
+one-device gradient under the same rules (which pick the MoE group count,
+as ``repro``'s step on one device would) 1e-4 x max(1, max |g|) (the shards
+are summed in another order); generated tokens equal.
 
 Mamba runs at sequence 64 in chunks of 32, where ``repro``'s
 ``ssd_chunked`` keeps finite gradients (see test_torch_ssm.py).
@@ -45,13 +49,14 @@ from repro_torch.parallel.sharding import axis_rules, logical_spec
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CPU = torch.device("cpu")
-ARCHS = ("qwen2-1.5b", "mamba2-130m")
-SEQ = {"qwen2-1.5b": 32, "mamba2-130m": 64}
+ARCHS = ("qwen2-1.5b", "mamba2-130m", "olmoe-1b-7b")
+SEQ = {"qwen2-1.5b": 32, "mamba2-130m": 64, "olmoe-1b-7b": 32}
 BATCHES = (8, 6)                      # split over 4 devices; replicated
 STEPS, LR, TOL = 4, 1e-3, 1e-4
-# the reduced configs whose parameters the port builds (MoE layers and the
-# frontends wait for their slices)
-SPEC_ARCHS = ("qwen2-1.5b", "mamba2-130m", "yi-6b", "deepseek-7b", "minitron-4b")
+# every reduced config
+SPEC_ARCHS = ("qwen2-1.5b", "mamba2-130m", "yi-6b", "deepseek-7b", "minitron-4b",
+              "olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "musicgen-large",
+              "internvl2-26b")
 MESHES = {"data4": ((4,), ("data",)), "data2x2": ((2, 2), ("data", "model"))}
 SHAPES = [("train", 16, 8), ("train", 16, 6), ("decode", 16, 8), ("decode", 16, 6),
           ("decode", 12, 3)]
@@ -155,6 +160,7 @@ else:
                                        jax.tree.map(jnp.asarray, _batch(cfg.vocab_size, rows,
                                                                         SEQ[arch], step)))
             res[f"{{rows}}/{{step}}/loss"] = np.float64(m["loss"])
+            res[f"{{rows}}/{{step}}/aux"] = np.float64(m["aux"])
             for k, v in _flatten(jax.tree.map(np.asarray, params)).items():
                 res[f"{{rows}}/{{step}}/params/{{k}}"] = v
     np.savez(out, **res)
@@ -263,6 +269,9 @@ def test_dp_train_step_matches_repro(jax_dp, arch, rows):
         params, state, m = step_fn(params, state, step, batch)
         want = float(ref[f"{rows}/{step}/loss"])
         assert abs(float(m["loss"]) - want) <= TOL * max(1.0, abs(want)), step
+        want = float(ref[f"{rows}/{step}/aux"])
+        assert abs(float(m["aux"]) - want) <= TOL * max(1.0, abs(want)), step
+        assert (want > 0) == (arch == "olmoe-1b-7b")
         for k, v in _flatten(params).items():
             w = ref[f"{rows}/{step}/params/{k}"]
             np.testing.assert_allclose(v.numpy(), w, rtol=0,
@@ -275,17 +284,20 @@ def test_dp_train_step_matches_repro(jax_dp, arch, rows):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dp_grads_match_one_device(arch, n_dev, rows):
     """The data-parallel loss, metrics and gradient over ``[cpu] * n``
-    against the one-device step's, from the same parameters and batch."""
+    against the one-device step's under the same rules, from the same
+    parameters and batch."""
     from repro_torch.models.model import init_params
     cfg = _cfg(arch)
     params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
     batch = {k: torch.as_tensor(v).long()
              for k, v in _batch(cfg.vocab_size, rows, SEQ[arch], 0).items()}
-    l1, m1, g1 = tsteps.make_grad_step(cfg, None)(params, batch)
     rules = tsteps.baseline_rules(tmesh.make_host_mesh([CPU] * n_dev))
+    with axis_rules(rules):
+        l1, m1, g1 = tsteps.make_grad_step(cfg, None)(params, batch)
     ln, mn, gn = tsteps.make_grad_step(cfg, rules)(params, batch)
     assert abs(float(ln) - float(l1)) <= TOL * abs(float(l1))
-    assert abs(float(mn["ce"]) - float(m1["ce"])) <= TOL * abs(float(m1["ce"]))
+    for k in ("ce", "aux"):
+        assert abs(float(mn[k]) - float(m1[k])) <= TOL * max(1.0, abs(float(m1[k]))), k
     for a, b in zip(leaves(gn), leaves(g1), strict=True):
         assert a.shape == b.shape
         assert (a - b).abs().max().item() <= TOL * max(1.0, b.abs().max().item())
@@ -315,7 +327,7 @@ def test_tensor_parallel_rules_raise():
 def test_dp_generate_and_prefill_match_one_device(arch, rows):
     """``generate`` and the prefill step over ``[cpu] * 2``: the rows split
     (4) or replicated (3) over the devices, the tokens and logits those of
-    one device."""
+    one device under the same rules."""
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import init_params
     cfg = _cfg(arch)
@@ -323,13 +335,14 @@ def test_dp_generate_and_prefill_match_one_device(arch, rows):
     prompts = np.random.default_rng(rows).integers(0, cfg.vocab_size, (rows, 6))
     rules = tsteps.baseline_rules(tmesh.make_host_mesh([CPU] * 2))
     stats: dict = {}
-    one = generate(cfg, params, prompts, 5)
+    batch = {"tokens": torch.as_tensor(prompts)}
+    with axis_rules(rules):
+        one = generate(cfg, params, prompts, 5)
+        b = tsteps.make_prefill_step(cfg, None)(params, batch)
     dp = generate(cfg, params, prompts, 5, rules, stats=stats)
     assert dp.shape == (rows, 5) and torch.equal(dp, one)
     assert stats["decode_steps"] == 5
-    batch = {"tokens": torch.as_tensor(prompts)}
     a = tsteps.make_prefill_step(cfg, rules)(params, batch)
-    b = tsteps.make_prefill_step(cfg, None)(params, batch)
     assert a.shape == b.shape == (rows, 1, cfg.vocab_size)
     assert (a - b).abs().max().item() <= 1e-5
 

@@ -1,8 +1,8 @@
 """The port's training-graph tracer (``repro_torch.core.torch_export``, aten
 through ``make_fx``) against ``repro.core.jax_export`` (jaxprs), on reduced
-qwen2-1.5b and mamba2-130m in f32 with the same parameters (drawn by
-``repro.models.init_params``, carried over by ``repro_torch.models.convert``)
-and the same numpy batch.
+qwen2-1.5b, mamba2-130m, olmoe-1b-7b and jamba-v0.1-52b in f32 with the same
+parameters (drawn by ``repro.models.init_params``, carried over by
+``repro_torch.models.convert``) and the same numpy batch.
 
 What must agree, and how closely:
 - parameter nodes, ApplyGradient nodes and the gradient bytes they receive:
@@ -14,11 +14,13 @@ What must agree, and how closely:
   state-update gradient, whose output nobody reads (``DEAD_SSD_PRODUCTS``);
   they are taken out of the JAX count before comparing;
 - every forward projection (``x @ W``) CONCAT and every gradient producer
-  SUM, after aten flattened the batch into ``B*S`` rows;
+  SUM, after aten flattened the batch into ``B*S`` rows; the MoE dispatch
+  (a gather of the batch's rows into expert slots) and the expert products
+  CONCAT, the expert weight gradients SUM;
 - after ``simplify`` no cast, clone, detach or broadcast node is left;
-- a TAG search over ``tpu_pods()`` on each torch graph finds a feasible
-  strategy, and the DP steps of the two graphs, each in one op group, are
-  within 10 % of each other.
+- a TAG search over ``tpu_pods()`` on the qwen2-1.5b and mamba2-130m torch
+  graphs finds a feasible strategy, and the DP steps of the two graphs,
+  each in one op group, are within 10 % of each other.
 
 ``python tests/test_torch_export.py`` prints the ratios PERF.md records.
 """
@@ -49,6 +51,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.convert import params_from_numpy
 
 ARCHS = ("qwen2-1.5b", "mamba2-130m")
+TRACE_ARCHS = (*ARCHS, "olmoe-1b-7b", "jamba-v0.1-52b")
 BATCH, SEQ = 4, 64
 MATMUL_RTOL = 0.01
 BASELINE_RTOL = 0.10
@@ -105,7 +108,7 @@ def dead_ssd_flops(arch) -> float:
     return DEAD_SSD_PRODUCTS * per * cfg.pattern.count("M") * cfg.num_periods
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRACE_ARCHS)
 def test_param_and_apply_nodes_match_leaf_by_leaf(arch):
     jg, tg = graphs(arch)
     jl, tl = _leaves(jg), _leaves(tg)
@@ -117,7 +120,7 @@ def test_param_and_apply_nodes_match_leaf_by_leaf(arch):
         assert tprod.grad_bytes == jprod.grad_bytes == tp.param_bytes
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRACE_ARCHS)
 def test_matmul_flops_match(arch):
     jg, tg = graphs(arch)
     jm = matmul_flops(jg, {"dot_general", "conv_general_dilated"})
@@ -133,7 +136,7 @@ def _param_rooted(g, op_id) -> bool:
     return node.op_type in PARAM_PATH and all(_param_rooted(g, p) for p in g.preds(op_id))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRACE_ARCHS)
 def test_projections_concat_and_weight_grads_sum(arch):
     """Trap 1 of tracing aten: ``linear`` on (B, S, D) runs on (B*S, D)."""
     _, tg = graphs(arch)
@@ -141,17 +144,35 @@ def test_projections_concat_and_weight_grads_sum(arch):
     tg.build_adj()
     proj = [n for n in tg.nodes.values() if n.op_type in ("mm", "addmm")
             and [_param_rooted(tg, p) for p in tg.preds(n.op_id)][-2:] == [False, True]]
-    # every layer's projections and the head, in the forward pass (and the
-    # input gradients of the same products in the backward pass)
-    per_layer = (4 if "A" in cfg.pattern else 2) + (3 if cfg.d_ff else 0)
-    assert len(proj) >= 2 * (per_layer * cfg.num_layers + 1)
+    # every layer's projections (an MoE layer's router; its experts are
+    # bmm) and the head, in the forward pass (and the input gradients of the
+    # same products in the backward pass)
+    per_period = sum((4 if ch == "A" else 2) + (0 if not cfg.d_ff else 1 if (
+        cfg.num_experts and j % cfg.moe_every == cfg.moe_every - 1) else 3)
+        for j, ch in enumerate(cfg.pattern))
+    assert len(proj) >= 2 * (per_period * cfg.num_periods + 1)
     assert {n.split for n in proj} == {Split.CONCAT}
     assert all(n.batch_dim for n in proj)
     prods = [prod for _, _, prod in _leaves(tg)]
     assert {p.split for p in prods} == {Split.SUM}, [(p.name, p.split) for p in prods]
+    experts = [n for n in tg.nodes.values() if n.op_type == "bmm"
+               and [_param_rooted(tg, p) for p in tg.preds(n.op_id)] == [False, True]]
+    gathers = [n for n in tg.nodes.values() if n.op_type == "index"]
+    assert {n.split for n in gathers} <= {Split.CONCAT}
+    if cfg.num_experts:
+        # forward: w_gate and w_up on the dispatched slots, w_down on their
+        # product, all CONCAT; backward: the input gradients of the same
+        # products, CONCAT but for w_down's, whose output gradient comes
+        # back from the combine's gather scattered into the slots, which the
+        # tracer counts as a partial sum (as it counts the embedding's)
+        n_moe = sum(j % cfg.moe_every == cfg.moe_every - 1
+                    for j in range(len(cfg.pattern))) * cfg.num_periods
+        assert len(experts) == 2 * 3 * n_moe
+        assert sum(n.split == Split.CONCAT for n in experts) == 5 * n_moe
+        assert len(gathers) > 1
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRACE_ARCHS)
 def test_simplify_drops_casts_copies_detaches_and_broadcasts(arch):
     """Trap 2: aten's ``_to_copy``, ``clone``, ``detach`` and ``expand`` go
     under the JAX names that ``CompGraph.simplify`` drops."""

@@ -235,9 +235,3 @@ def test_bf16_prefill_matches(impl):
     lg = tmodel.prefill_step(tcfg, tp, {"tokens": torch.from_numpy(tokens)})
     assert lg.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(lg), _np(lg_ref), atol=BF16_ATOL)
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "olmoe-1b-7b", "musicgen-large"])
-def test_unported_layers_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.model_defs(get_reduced(arch))

@@ -1,6 +1,15 @@
 """Port parity, pipeline execution: ``repro_torch.exec.PipelineRunner`` against
 ``repro.exec.PipelineRunner`` and against the port's single-device gradient,
-on reduced qwen2-1.5b (tied head) and mamba2-130m (untied head), f32, CPU.
+on reduced qwen2-1.5b (tied head) and mamba2-130m (untied head), f32, CPU;
+and, in ``FAMILY_CASES``, the other model families: olmoe and musicgen
+(its frontend prefix on stage 0) under 1f1b and zb with AR and 2 shards a
+stage, and jamba (4 layers: one Mamba and one attention layer with an MoE
+FFN a stage) under 1f1b. Each shard of a stage routes its MoE layers as one
+group with its own aux loss, as ``repro``'s stages under ``shard_map`` do,
+so an MoE pipeline's single-device reference is the mean of ``loss_fn``
+over the engine's row blocks (a microbatch's rows on one shard), each
+routed alone; at capacity factor 0.5 every shard drops assignments (2 x 32
+of them into 4 experts of 8 slots).
 
 ``repro``'s engine runs once for this module, in a subprocess with four
 forced host devices (as ``tests/test_exec.py`` runs it), over every case
@@ -39,7 +48,8 @@ from repro_torch.optim.adam import from_leaves, leaves
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 ARCHS = ("qwen2-1.5b", "mamba2-130m")
-SEQ = {"qwen2-1.5b": 16, "mamba2-130m": 64}
+SEQ = {"qwen2-1.5b": 16, "mamba2-130m": 64, "olmoe-1b-7b": 16, "musicgen-large": 16,
+       "jamba-v0.1-52b": 32}
 BATCH, BATCH_SEED = 8, 11
 TOL = 1e-4
 # (schedule, sync, devices a stage, n_micro, chunks a stage)
@@ -56,18 +66,36 @@ CASES = {
     "zb-sfb-dp2": ("zb", "sfb", 2, 2, 1),
 }
 PEAK_STASH = {"gpipe": 8, "1f1b": 3, "zb": 3}
+FAMILY_CASES = [("olmoe-1b-7b", "1f1b-ar-dp2"), ("olmoe-1b-7b", "zb-ar-dp2"),
+                ("musicgen-large", "1f1b-ar-dp2"), ("musicgen-large", "zb-ar-dp2"),
+                ("jamba-v0.1-52b", "1f1b-ar-dp2")]
 KINDS = "FBW"
 CPU = torch.device("cpu")
 
 
 def _cfg_kw(arch):
-    return {"ssm_chunk": 32} if arch == "mamba2-130m" else {}
+    return {"mamba2-130m": {"ssm_chunk": 32}, "olmoe-1b-7b": {"capacity_factor": 0.5},
+            "jamba-v0.1-52b": {"ssm_chunk": 32, "num_layers": 4, "capacity_factor": 0.5},
+            }.get(arch, {})
 
 
-def _batch(vocab: int, seq: int) -> dict:
+def _prefix(cfg) -> tuple:
+    """The shape of a row's frontend prefix, () without a frontend."""
+    return (cfg.frontend_tokens, cfg.d_model) if cfg.frontend != "none" else ()
+
+
+def _batch(vocab: int, seq: int, prefix: tuple = ()) -> dict:
     rng = np.random.default_rng(BATCH_SEED)
-    return {"tokens": rng.integers(0, vocab, (BATCH, seq)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (BATCH, seq)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, (BATCH, seq)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (BATCH, seq)).astype(np.int32)}
+    if prefix:
+        out["prefix"] = rng.standard_normal((BATCH, *prefix)).astype(np.float32)
+    return out
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.as_tensor(v) if v.dtype == np.float32 else torch.as_tensor(v).long()
+            for k, v in batch.items()}
 
 
 def _plan(n_micro, sync="allreduce", n_devices=1):
@@ -108,7 +136,8 @@ from repro.exec.stages import StagePlan
 from repro.models import init_params
 from repro.runtime.telemetry import MeasurementStore
 sys.path.insert(0, {test_dir!r})
-from test_torch_pipeline import CASES, KINDS, SEQ, _batch, _cfg_kw, _flatten, _plan
+from test_torch_pipeline import (
+    CASES, KINDS, SEQ, _batch, _cfg_kw, _flatten, _plan, _prefix)
 
 devs = jax.devices()
 assert len(devs) == 4, devs
@@ -118,7 +147,7 @@ cfg = get_reduced(arch).replace(dtype="float32", **_cfg_kw(arch))
 params = jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(0)))
 for k, v in _flatten(params).items():
     res[f"{{arch}}/params/{{k}}"] = v
-batch = _batch(cfg.vocab_size, SEQ[arch])
+batch = _batch(cfg.vocab_size, SEQ[arch], _prefix(cfg))
 for name in names:
     sched, sync, n, n_micro, V = CASES[name]
     plan = StagePlan.from_dict(_plan(n_micro, sync, n))
@@ -144,17 +173,26 @@ print("JAX_PIPELINE_OK")
 """
 
 
+def _case_groups() -> list:
+    """(arch, case names) a subprocess: every case of ``ARCHS`` by device
+    layout, and each family arch's cases."""
+    groups = [(arch, [c for c, v in CASES.items() if v[2] == n])
+              for arch in ARCHS for n in (1, 2)]
+    for arch in dict.fromkeys(a for a, _ in FAMILY_CASES):
+        groups.append((arch, [c for a, c in FAMILY_CASES if a == arch]))
+    return groups
+
+
 @pytest.fixture(scope="module")
 def jax_results(tmp_path_factory):
     """``repro``'s results for every case: one subprocess an arch and device
-    layout (one device a stage, or two), the four started together."""
+    layout (one device a stage, or two), all started together."""
     tmp = tmp_path_factory.mktemp("jaxpipe")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     code = textwrap.dedent(_JAX_SCRIPT.format(
         test_dir=os.path.dirname(os.path.abspath(__file__))))
-    groups = [(arch, [c for c, v in CASES.items() if v[2] == n])
-              for arch in ARCHS for n in (1, 2)]
+    groups = _case_groups()
     outs = [str(tmp / f"{i}.npz") for i in range(len(groups))]
     procs = [subprocess.Popen([sys.executable, "-c", code, out, arch, *names], env=env,
                               text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -175,19 +213,23 @@ def _of(res: dict, prefix: str) -> dict:
 _SETUPS: dict = {}
 
 
-def _setup(jax_results, arch):
+def _setup(jax_results, arch, blocks: int = 1):
     """The port's config, the JAX parameters as tensors, the batch, and the
-    port's own single-device loss and gradient (made once an arch)."""
-    if arch not in _SETUPS:
+    port's own single-device loss and gradient: the mean of ``loss_fn`` over
+    ``blocks`` equal row blocks of the batch (made once an arch and block
+    count)."""
+    if (arch, blocks) not in _SETUPS:
         cfg = get_reduced(arch).replace(dtype="float32", **_cfg_kw(arch))
         params = params_from_numpy(_unflatten(_of(jax_results, f"{arch}/params/")), CPU)
-        batch = {k: torch.as_tensor(v).long()
-                 for k, v in _batch(cfg.vocab_size, SEQ[arch]).items()}
+        batch = _torch_batch(_batch(cfg.vocab_size, SEQ[arch], _prefix(cfg)))
         ps = [t.clone().requires_grad_(True) for t in leaves(params)]
-        loss, _ = loss_fn(cfg, from_leaves(params, ps), batch, remat=False)
+        rows = BATCH // blocks
+        loss = sum(loss_fn(cfg, from_leaves(params, ps),
+                           {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()},
+                           remat=False)[0] for i in range(blocks)) / blocks
         ref = from_leaves(params, list(torch.autograd.grad(loss, ps)))
-        _SETUPS[arch] = (cfg, params, batch, float(loss.detach()), ref)
-    return _SETUPS[arch]
+        _SETUPS[arch, blocks] = (cfg, params, batch, float(loss.detach()), ref)
+    return _SETUPS[arch, blocks]
 
 
 def _slice(tree, lo, hi):
@@ -210,9 +252,23 @@ def _run_port(cfg, params, batch, name, record=True, store=None):
 @pytest.mark.parametrize("name", list(CASES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_pipeline_matches_repro_and_single_device(jax_results, arch, name, tmp_path):
+    _check_case(jax_results, arch, name, tmp_path)
+
+
+@pytest.mark.parametrize("arch,name", FAMILY_CASES)
+def test_pipeline_families_match_repro(jax_results, arch, name, tmp_path):
+    """MoE, hybrid and frontend models through the engine: ``repro``'s
+    numbers, and the single device's (for an MoE model, over the engine's
+    row blocks)."""
+    _check_case(jax_results, arch, name, tmp_path)
+
+
+def _check_case(jax_results, arch, name, tmp_path):
     from repro.runtime.telemetry import MeasurementStore as JaxMeasurementStore
     from repro_torch.runtime.telemetry import MeasurementStore
-    cfg, params, batch, ref_loss, ref = _setup(jax_results, arch)
+    _, _, n, n_micro, _ = CASES[name]
+    moe = get_reduced(arch).num_experts > 0
+    cfg, params, batch, ref_loss, ref = _setup(jax_results, arch, n * n_micro if moe else 1)
     store = MeasurementStore(str(tmp_path))
     grads, stats, splits = _run_port(cfg, params, batch, name, store=store)
     pre = f"{arch}/{name}"
@@ -237,6 +293,8 @@ def test_pipeline_matches_repro_and_single_device(jax_results, arch, name, tmp_p
         mine = dict(_flatten({"blocks": _slice(ref["blocks"], lo, hi)}))
         if u == 0:
             mine["embed"] = ref["embed"]
+            if "frontend_proj" in ref:
+                mine["frontend_proj"] = ref["frontend_proj"]
         if u == U - 1:
             mine["final_norm"] = ref["final_norm"]
             if "head" in ref:
@@ -320,7 +378,7 @@ def test_single_stage_split_matches_reference():
     from repro_torch.models.model import init_params
     cfg = get_reduced("qwen2-1.5b").replace(dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
-    batch = {k: torch.as_tensor(v).long() for k, v in _batch(cfg.vocab_size, 8).items()}
+    batch = _torch_batch(_batch(cfg.vocab_size, 8))
     ref, _ = loss_fn(cfg, params, batch, remat=False)
     sp, fns, keys, tied = split_model(cfg, params, 1)
     assert tied is None and keys == [["tokens", "labels"]]

@@ -1,8 +1,10 @@
 """Port parity, the compiled engine: ``repro_torch.exec.CompiledPipelineRunner``
 against ``repro.exec.CompiledPipelineRunner`` and against the port's eager
 engine, on reduced qwen2-1.5b (tied head) and mamba2-130m (untied head),
-f32, CPU, where the compiled engine's loops run uncaptured (on a card each
-is a CUDA graph: ``tests/test_torch_cuda.py``).
+and on the other families' cases of ``tests/test_torch_pipeline.py``
+(``FAMILY_CASES``: olmoe, musicgen, jamba), f32, CPU, where the compiled
+engine's loops run uncaptured (on a card each is a CUDA graph:
+``tests/test_torch_cuda.py``).
 
 ``repro``'s engine runs in four subprocesses with four forced host devices,
 started together, over the cases of ``tests/test_torch_pipeline.py``
@@ -28,8 +30,8 @@ torch.set_num_threads(1)
 pytest.importorskip("jax")
 
 from test_torch_pipeline import (
-    ARCHS, CASES, KINDS, SEQ, SRC, TOL, _args, _batch, _cfg_kw, _flatten, _hand_plan, _of,
-    _plan, _unflatten)
+    ARCHS, CASES, FAMILY_CASES, KINDS, SEQ, SRC, TOL, _args, _batch, _case_groups, _cfg_kw,
+    _flatten, _hand_plan, _of, _plan, _prefix, _torch_batch, _unflatten)
 
 from repro_torch.configs import get_reduced
 from repro_torch.exec import (
@@ -48,7 +50,8 @@ from repro.exec import CompiledPipelineRunner, split_model
 from repro.exec.stages import StagePlan
 from repro.models import init_params
 sys.path.insert(0, {test_dir!r})
-from test_torch_pipeline import CASES, KINDS, SEQ, _batch, _cfg_kw, _flatten, _plan
+from test_torch_pipeline import (
+    CASES, KINDS, SEQ, _batch, _cfg_kw, _flatten, _plan, _prefix)
 
 devs = jax.devices()
 assert len(devs) == 4, devs
@@ -58,7 +61,7 @@ cfg = get_reduced(arch).replace(dtype="float32", **_cfg_kw(arch))
 params = jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(0)))
 for k, v in _flatten(params).items():
     res[f"{{arch}}/params/{{k}}"] = v
-batch = _batch(cfg.vocab_size, SEQ[arch])
+batch = _batch(cfg.vocab_size, SEQ[arch], _prefix(cfg))
 for name in names:
     sched, sync, n, n_micro, V = CASES[name]
     plan = StagePlan.from_dict(_plan(n_micro, sync, n))
@@ -85,14 +88,13 @@ print("JAX_SCAN_OK")
 @pytest.fixture(scope="module")
 def jax_scan(tmp_path_factory):
     """``repro``'s compiled engine on every case: one subprocess an arch and
-    device layout, the four started together."""
+    device layout, all started together."""
     tmp = tmp_path_factory.mktemp("jaxscan")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     code = textwrap.dedent(_JAX_SCRIPT.format(
         test_dir=os.path.dirname(os.path.abspath(__file__))))
-    groups = [(arch, [c for c, v in CASES.items() if v[2] == n])
-              for arch in ARCHS for n in (1, 2)]
+    groups = _case_groups()
     outs = [str(tmp / f"{i}.npz") for i in range(len(groups))]
     procs = [subprocess.Popen([sys.executable, "-c", code, out, arch, *names], env=env,
                               text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -129,8 +131,7 @@ def _grads_close(a_list, b_list, atol, what):
                 np.testing.assert_allclose(x, y, rtol=0, atol=atol, err_msg=f"{what} {u} {k}")
 
 
-@pytest.mark.parametrize("name", list(CASES))
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch,name", [(a, n) for a in ARCHS for n in CASES] + FAMILY_CASES)
 def test_scan_engine_matches_repro_and_eager(jax_scan, arch, name):
     """The port's compiled engine against ``repro``'s and against the port's
     eager engine: loss, ``ce``, every gradient leaf, ``peak_stash`` (U x
@@ -138,7 +139,7 @@ def test_scan_engine_matches_repro_and_eager(jax_scan, arch, name):
     and the events (one a loop, ``mb == -1``: 2U, 3U under zb)."""
     cfg = get_reduced(arch).replace(dtype="float32", **_cfg_kw(arch))
     params = params_from_numpy(_unflatten(_of(jax_scan, f"{arch}/params/")), CPU)
-    batch = {k: torch.as_tensor(v).long() for k, v in _batch(cfg.vocab_size, SEQ[arch]).items()}
+    batch = _torch_batch(_batch(cfg.vocab_size, SEQ[arch], _prefix(cfg)))
     scan, sp = _runner(CompiledPipelineRunner, cfg, params, name)
     grads, stats = scan.step(sp, batch, record=True)
     eager, ep = _runner(PipelineRunner, cfg, params, name)
@@ -168,7 +169,7 @@ def test_scan_unroll_keeps_the_gradients(unroll):
     cfg = get_reduced("qwen2-1.5b").replace(dtype="float32")
     from repro_torch.models.model import init_params
     params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
-    batch = {k: torch.as_tensor(v).long() for k, v in _batch(cfg.vocab_size, 16).items()}
+    batch = _torch_batch(_batch(cfg.vocab_size, 16))
     base, bp = _runner(CompiledPipelineRunner, cfg, params, "zb")
     g1, s1 = base.step(bp, batch, record=True)
     r, rp = _runner(CompiledPipelineRunner, cfg, params, "zb", unroll=unroll)
