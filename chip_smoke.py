@@ -100,7 +100,24 @@ Phases, each printed on lines of its own and each fatal when it fails:
            compiled engine's graphs), timed, and one profiled. On one card
            this checks the schedule and the gradients and measures the
            engines' overhead, not overlap.
-11. kernels one JSON line with every kernel's launches, error and times.
+11. service the planner service, runtime feedback and the GNN policy, every
+           kernel count at 0 just before them: ``launch/serve.py`` with
+           ``--plan-topo h100 --observe`` on full-width qwen2-1.5b in bf16
+           (batch 4, a prompt of 64, 32 tokens) on a fresh plan cache and
+           telemetry log: a cold plan through ``PlannerService``, then the
+           measured decode step fed back through ``observe`` (drift, kind)
+           and logged; the same command again, served from the cache (no
+           MCTS playout). Then the GNN on the card: ``train_policy`` for 3
+           steps on reduced qwen2-1.5b and mamba2-130m graphs over
+           ``h100_nodes()`` and a random topology, saved to and loaded from
+           a ``PolicyRegistry``, a registry-guided search (and an unguided
+           one, timed), and the priors on the card against the CPU. Last the
+           H100 row's utilization fitted by ``fit_profile`` from the pipeline
+           phase's engine telemetry (the hand-built plan's stages carry the
+           full-width trace's FLOPs), and the full-width qwen2-1.5b plan
+           simulated under the prior and under the fit, and searched again
+           under the fit.
+12. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -193,6 +210,12 @@ KERNEL_SOURCES = ("flash_attention", "ssd_scan")
 MOE_TRAIN_LAYERS, ROUTE_TIE_RTOL = 4, 1e-6
 # dp phase: depth a model (qwen2-1.5b and mamba2-130m 4, olmoe-1b-7b 2)
 DP_ARCH_LAYERS = {QWEN: 4, MAMBA: 4, OLMOE: 2}
+# service phase: serve --plan-topo h100 --observe (batch, prompt, tokens,
+# playouts); the GNN's groups a reduced graph, train steps and playouts a
+# step; GNN priors on the card against the CPU, f32
+SERVICE_BATCH, SERVICE_PROMPT, SERVICE_GEN, SERVICE_PLAN_ITERS = 4, 64, 32, 20
+SERVICE_GNN_GROUPS, SERVICE_GNN_STEPS, SERVICE_GNN_PLAYOUTS = 12, 3, 12
+SERVICE_PRIOR_TOL = 1e-5
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, B, S, H, KV, hd, causal, window, dtype)
@@ -1365,7 +1388,8 @@ def plan_trace(arch: str, smi: str):
 def plan_search(arch: str, g, smi: str):
     """The search of a full-width graph, as the launcher searches the reduced
     one: ``simplify``, ``partition``, then MCTS with the SFB post-pass over
-    ``h100_nodes()``, each step timed; the plan it lowers to."""
+    ``h100_nodes()``, each step timed; the plan it lowers to. Returns the
+    grouped graph and the search's result."""
     from repro_torch.core import tag as tag_mod
     from repro_torch.core.device import h100_nodes
     from repro_torch.core.graph import group_graph
@@ -1392,6 +1416,7 @@ def plan_search(arch: str, g, smi: str):
                 f"{result.baseline_time:.6g} s, speedup {result.speedup:.4f}; {smi}")
     if not (result.strategy.complete() and np.isfinite(result.time) and result.time > 0):
         raise RuntimeError(f"{arch}: the full-width search gave no complete, finite plan")
+    return gg, result
 
 
 def plan_gemm_profile(smi: str):
@@ -1570,11 +1595,12 @@ def phase_dp(seed: int, smi: str):
         torch.cuda.empty_cache()
 
 
-def _two_stage_plan(sync="allreduce", n_devices=1, n_micro=4):
-    """Two equal 1f1b stages, as a hand-built plan."""
+def _two_stage_plan(sync="allreduce", n_devices=1, n_micro=4, flops=1e9):
+    """Two equal 1f1b stages, as a hand-built plan, ``flops`` each (what the
+    engine's telemetry attributes to a stage's events)."""
     from repro_torch.exec import StagePlan, StageSpec
     return StagePlan(
-        stages=[StageSpec(i, i, [i], flops=1e9, param_bytes=0, grad_bytes=0, out_bytes=1e5,
+        stages=[StageSpec(i, i, [i], flops=flops, param_bytes=0, grad_bytes=0, out_bytes=1e5,
                           sync=sync, n_devices=n_devices, gpu_type="H100") for i in range(2)],
         placement=(0, 1), n_micro=n_micro, schedule="1f1b")
 
@@ -1775,7 +1801,8 @@ def _leaf(tree, name: str, lo: int, hi: int):
     return tree[lo:hi] if name.startswith("blocks.") else tree
 
 
-def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True):
+def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True,
+                 stage_flops: float = 1e9, telemetry: list | None = None):
     """``run_pipeline`` as a user runs it, full-width, full-depth qwen2-1.5b
     in bf16, 3 steps, once with each engine: with ``searched``, the 2-stage
     plan of ``plan_deployment`` (or a hand-built one where that plan has
@@ -1786,7 +1813,11 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
     events and stash (every event, or loop, synchronized to time it). Then
     the same pipeline, built afresh by ``build_pipeline``, takes two more
     steps without per-event synchronization, both timed (the first captures
-    the compiled engine's graphs), then one more under torch.profiler."""
+    the compiled engine's graphs), then one more under torch.profiler.
+
+    A hand-built plan gives each stage ``stage_flops``; where ``telemetry``
+    is a list, the StepRecords of a hand-built plan's runs are appended to it
+    (the service phase fits the H100 utilization from them)."""
     import argparse
     import tempfile
     from repro_torch.configs import get_config
@@ -1800,8 +1831,9 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
         sp = plan.stage_plan
         source = (f"plan_deployment's ({0 if sp is None else sp.n_stages} stages, searched in "
                   f"{time.perf_counter() - t0:.2f} s, speedup {result.speedup:.4f})")
-    if sp is None or sp.n_stages < 2:
-        sp = _two_stage_plan(n_micro=PIPE_RUN_MICRO)
+    hand_built = sp is None or sp.n_stages < 2
+    if hand_built:
+        sp = _two_stage_plan(n_micro=PIPE_RUN_MICRO, flops=stage_flops)
         source += ", fewer than 2 stages: a hand-built 2-stage plan" if searched else ""
     # SFB needs two participants (the verifier's TAG302): a plan with an SFB
     # stage gets two shards a stage, all on the one card
@@ -1825,6 +1857,9 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
             wall = time.perf_counter() - t0
             lines = (Path(telem) / TELEMETRY_FILE).read_text().splitlines()
         recs = [json.loads(line) for line in lines]
+        if hand_built and telemetry is not None:
+            from repro_torch.runtime.telemetry import StepRecord
+            telemetry.extend(StepRecord.from_dict(r) for r in recs)
         peak = torch.cuda.max_memory_allocated(dev)
         times = [r["wall_time"] * 1e3 for r in recs]
         last = recs[-1]["meta"]
@@ -1885,6 +1920,224 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
                     f"train_step_ms {single}; {smi}")
 
 
+def _serve_planned(argv: list) -> tuple:
+    """``launch/serve.py::main`` as a user runs it, keeping what its
+    ``plan_deployment`` returned and timing it; its output is printed and
+    returned."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_mod
+    kept = {}
+    plan_deployment = serve_mod.plan_deployment
+
+    def keep(*a, **kw):
+        t0 = time.perf_counter()
+        kept["resp"], kept["svc"], kept["gg"], kept["topo"] = out = plan_deployment(*a, **kw)
+        kept["s"] = time.perf_counter() - t0
+        return out
+
+    out = io.StringIO()
+    serve_mod.plan_deployment = keep
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            serve_mod.main(argv)
+    finally:
+        serve_mod.plan_deployment = plan_deployment
+        print(out.getvalue(), end="", flush=True)
+    kept["wall"] = time.perf_counter() - t0
+    return kept, out.getvalue()
+
+
+def _plan_seconds(svc, source: str) -> float:
+    """``plan_graph``'s own seconds (no trace) from the service's metrics."""
+    series = svc.stats()["metrics"]["planner_plan_seconds"]["series"]
+    return series[f'{{source="{source}"}}']["sum"]
+
+
+def _reduced_grouped(arch: str, n_groups: int):
+    """The reduced config's training graph traced on meta tensors, as the
+    serve launcher traces its plan (batch 4 x 32), grouped."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import tag as tag_mod
+    from repro_torch.models.model import abstract_params, input_specs, loss_fn
+    cfg = get_reduced(arch)
+    specs = input_specs(cfg, InputShape("plan_4x32", 32, 4, "train"))
+    return tag_mod.build_grouped(lambda p, b: loss_fn(cfg, p, b, remat=False)[0],
+                                 abstract_params(cfg), specs, arch, n_groups)
+
+
+def service_serve(seed: int, root: Path, smi: str):
+    """Steps 1 and 2: ``serve --plan-topo h100 --observe`` at full width on
+    a fresh plan cache and telemetry log, then the same command again."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.telemetry import MeasurementStore
+    cache, telem = root / "plans", root / "telemetry"
+    argv = ["--arch", QWEN, "--batch", str(SERVICE_BATCH), "--prompt-len", str(SERVICE_PROMPT),
+            "--gen", str(SERVICE_GEN), "--seed", str(seed), "--plan-topo", "h100", "--observe",
+            "--plan-iters", str(SERVICE_PLAN_ITERS), "--plan-cache", str(cache),
+            "--telemetry-dir", str(telem)]
+    cfg = get_config(QWEN)
+    runs = []
+    for k in range(2):
+        kept, out = _serve_planned(argv)
+        resp, svc = kept["resp"], kept["svc"]
+        obs = re.search(r"^observe\[h100\] step=([\d.]+)s kind=(\w+)(?: drift=([\d.]+))?", out, re.M)
+        if obs is None:
+            raise RuntimeError(f"serve run {k + 1} printed no observe[...] line")
+        step_s, kind, drift = float(obs.group(1)), obs.group(2), obs.group(3)
+        logged = [r for r in MeasurementStore(str(telem)).records(graph_fp=resp.graph_fp,
+                                                                    topo_fp=resp.topo_fp)]
+        st = svc.stats()
+        log("service", f"serve --plan-topo h100 --observe, run {k + 1}: {cfg.name} full width "
+                       f"({cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.dtype}), batch "
+                       f"{SERVICE_BATCH}, prompt {SERVICE_PROMPT}, {SERVICE_GEN} tokens; plan "
+                       f"source={resp.source}, {resp.iterations_run} MCTS playouts, "
+                       f"{kept['gg'].n} groups of {len(kept['gg'].base.nodes)} ops; "
+                       f"plan_deployment {kept['s']:.3f} s (trace, group and plan_graph), "
+                       f"plan_graph {_plan_seconds(svc, resp.source):.4f} s; simulated "
+                       f"{resp.time:.6g} s, speedup {resp.speedup:.4f}; observed decode step "
+                       f"{step_s:.4f} s, kind={kind}, drift={drift}; replans {st['replans']}, "
+                       f"observations {st['observations']}, telemetry records of the plan "
+                       f"{len(logged)}; {kept['wall']:.1f} s in all; {smi}")
+        runs.append((resp, kind, logged))
+        if not (np.isfinite(resp.time) and resp.time > 0 and resp.speedup > 0):
+            raise RuntimeError(f"run {k + 1}: simulated time {resp.time}, speedup {resp.speedup}")
+        if kind not in ("replanned", "ok") or st["observations"] != 1:
+            raise RuntimeError(f"run {k + 1}: observe gave kind={kind}, {st['observations']} "
+                               f"observations")
+        if len(logged) != k + 1 or abs(logged[-1].wall_time - step_s) > 5e-5:
+            raise RuntimeError(f"run {k + 1}: the telemetry log holds {len(logged)} records of "
+                               f"the plan, not the observation of each run")
+    (first, _, _), (second, _, _) = runs
+    if first.source != "cold" or first.iterations_run != SERVICE_PLAN_ITERS:
+        raise RuntimeError(f"first run: source={first.source}, {first.iterations_run} playouts")
+    if second.source != "hit" or second.iterations_run != 0:
+        raise RuntimeError(f"second run on the same cache: source={second.source}, "
+                           f"{second.iterations_run} playouts (a cache hit runs none)")
+
+
+def service_gnn(seed: int, root: Path, smi: str):
+    """Step 3: the GNN policy on the card: 3 train steps, the registry,
+    a guided search, and priors on the card against the CPU."""
+    from repro_torch.core import trainer as trainer_mod
+    from repro_torch.core.device import h100_nodes, random_topology
+    from repro_torch.core.features import featurize
+    from repro_torch.core.hetgnn import params_from_numpy, policy_probs
+    from repro_torch.core.strategy import Strategy, candidate_actions
+    from repro_torch.service import PlannerService, PolicyRegistry
+    from repro_torch.service.fingerprint import fingerprint_grouped_cached, structural_features
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    graphs = [_reduced_grouped(arch, SERVICE_GNN_GROUPS) for arch in (QWEN, MAMBA)]
+    topos = [h100_nodes(), random_topology(np.random.default_rng(seed))]
+    trace_s = time.perf_counter() - t0
+    state = trainer_mod.init_trainer(seed=seed)
+    if state.params["enc_op"].device.type != "cuda":
+        raise RuntimeError("init_trainer did not put the GNN on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer_mod.train_policy(state, graphs, steps=SERVICE_GNN_STEPS,
+                             mcts_iters=SERVICE_GNN_PLAYOUTS, seed=seed, topologies=topos)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    log("service", f"GNN train_policy on the card: {SERVICE_GNN_STEPS} steps, "
+                   f"{SERVICE_GNN_PLAYOUTS} playouts each, over reduced {QWEN} and {MAMBA} "
+                   f"({[g.n for g in graphs]} groups, traced in {trace_s:.2f} s) on {topos[0].name} "
+                   f"and a random topology of {topos[1].m} groups; losses "
+                   f"{[round(x, 6) for x in state.losses]}; {train_s:.2f} s; {smi}")
+    if not state.losses or not all(np.isfinite(state.losses)):
+        raise RuntimeError(f"GNN training losses {state.losses}: none, or not all finite")
+    gg = graphs[0]
+    reg = PolicyRegistry(str(root / "gnn" / "policies"))
+    reg.save("chip", state.cfg, state.params, corpus=[fingerprint_grouped_cached(gg)],
+             corpus_features=[structural_features(gg)], meta={"steps": SERVICE_GNN_STEPS})
+    rec, params = reg.load("chip")
+    if rec.gnn_config() != state.cfg or any(
+            not np.array_equal(params[k], state.params[k].cpu().numpy()) for k in params):
+        raise RuntimeError("the registry did not give back the saved parameters")
+    topo = h100_nodes()
+    timed = {}
+    for label, svc in (("guided", PlannerService(cache_dir=str(root / "gnn"))),
+                       ("unguided", PlannerService(use_registry=False))):
+        t0 = time.perf_counter()
+        resp = svc.plan_graph(gg, topo, iterations=SERVICE_PLAN_ITERS, seed=seed)
+        timed[label] = (time.perf_counter() - t0, resp, svc.stats())
+    secs, resp, st = timed["guided"]
+    log("service", f"PlannerService search of reduced {QWEN} over {topo.name}, "
+                   f"{SERVICE_PLAN_ITERS} playouts: guided by the registry's '{resp.policy}' "
+                   f"{secs:.3f} s (speedup {resp.speedup:.4f}, policy_guided "
+                   f"{st['policy_guided']}), unguided {timed['unguided'][0]:.3f} s (speedup "
+                   f"{timed['unguided'][1].speedup:.4f}); {smi}")
+    if resp.policy != "chip" or st["policy_guided"] < 1:
+        raise RuntimeError(f"the search was not guided: policy={resp.policy}, stats {st}")
+    het = featurize(gg, topo, Strategy.empty(gg.n), None, 0)
+    actions = candidate_actions(topo, has_grad=True)
+    worst = 0.0
+    for gid in (0, gg.n // 2, gg.n - 1):
+        on_card = policy_probs(state.cfg, params_from_numpy(params, dev), het, gid, actions)
+        on_cpu = policy_probs(state.cfg, params_from_numpy(params, "cpu"), het, gid, actions)
+        worst = max(worst, float((on_card.cpu() - on_cpu).abs().max()))
+    log("service", f"GNN priors on the card against the CPU, the same parameters, 3 groups x "
+                   f"{len(actions)} actions: max |diff| {worst:.3e} (tolerance "
+                   f"{SERVICE_PRIOR_TOL:g})")
+    if not worst <= SERVICE_PRIOR_TOL:
+        raise RuntimeError(f"priors on the card differ from the CPU's by {worst}")
+
+
+def service_calibration(records: list, qwen_gg, qwen_plan, smi: str):
+    """Step 4: the H100 row's utilization fitted from the pipeline phase's
+    engine telemetry, and the full-width qwen2-1.5b plan under the prior
+    and under the fit."""
+    from repro_torch.core import tag as tag_mod
+    from repro_torch.core.device import GPU_PEAKS, h100_nodes
+    from repro_torch.runtime.calibration import fit_profile
+    topo = h100_nodes()
+    samples = [c for r in records for c in r.compute
+               if c.get("gpu_type") == "H100" and c.get("flops", 0) > 0 and c.get("time", 0) > 0]
+    profile = fit_profile(records, topo)
+    util = profile.util.get("H100")
+    by_engine = {}
+    for r in records:
+        by_engine.setdefault(r.meta.get("engine"), []).append(r)
+    per_engine = {e: fit_profile(rs, topo).util.get("H100") for e, rs in sorted(by_engine.items())}
+    prior = GPU_PEAKS["H100"]["util"]
+    if util is None or not 0 < util <= 1:
+        raise RuntimeError(f"the H100 fit gave {util} from {len(samples)} samples")
+    calib = profile.apply(topo)
+    t_prior = tag_mod.strategy_step_time(qwen_gg, qwen_plan.strategy, topo, sfb=True)
+    t_fit = tag_mod.strategy_step_time(qwen_gg, qwen_plan.strategy, calib, sfb=True)
+    t0 = time.perf_counter()
+    refit = tag_mod.optimize(None, None, None, calib, gg=qwen_gg, iterations=SEARCH_PLAYOUTS,
+                             n_groups=SEARCH_GROUPS)
+    search_s = time.perf_counter() - t0
+    same = refit.strategy.canonical_json() == qwen_plan.strategy.canonical_json()
+    log("service", f"H100 calibration from the pipeline phase's engine telemetry (hand-built "
+                   f"2-stage plan, each stage {qwen_gg.base.total_flops() / 2:.6g} FLOPs of the "
+                   f"full-width trace): {len(records)} records, {len(samples)} compute samples; "
+                   f"fitted utilization {util:.6f} against the row's prior {prior} and the bf16 "
+                   f"GEMM fit of 0.82-0.85 (PR 15); by engine {per_engine}; by event kind "
+                   f"{ {k: round(v, 6) for k, v in profile.util_by_op.items()} }; full-width "
+                   f"{QWEN} plan over {topo.name} simulated {t_prior:.6g} s under the prior, "
+                   f"{t_fit:.6g} s under the fit; searched again under the fit "
+                   f"({search_s:.2f} s): simulated {refit.time:.6g} s, speedup "
+                   f"{refit.speedup:.4f}, plan {'unchanged' if same else 'changed'}; {smi}")
+    if not (np.isfinite(t_fit) and t_fit > 0 and refit.strategy.complete()):
+        raise RuntimeError(f"the calibrated model gave {t_fit} / an incomplete plan")
+
+
+def phase_service(seed: int, records: list, qwen_gg, qwen_plan, smi: str):
+    """The planner service on the card: serve --plan-topo h100 --observe
+    twice on one cache, the GNN policy, the H100 calibration."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        service_serve(seed, root, smi)
+        service_gnn(seed, root, smi)
+    service_calibration(records, qwen_gg, qwen_plan, smi)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1895,6 +2148,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     phase = "env"
     try:
         smi = phase_env()
@@ -1929,8 +2183,8 @@ def main(argv=None) -> int:
         graphs = {arch: plan_trace(arch, smi) for arch in (QWEN, MAMBA)}
         plan_gemm_profile(smi)
         plan_tag_search(smi)
-        for arch in (QWEN, MAMBA):
-            plan_search(arch, graphs.pop(arch), smi)
+        qwen_gg, qwen_plan = plan_search(QWEN, graphs.pop(QWEN), smi)
+        plan_search(MAMBA, graphs.pop(MAMBA), smi)
         phase = "dp"
         reset_counts()
         phase_dp(args.seed, smi)
@@ -1945,12 +2199,24 @@ def main(argv=None) -> int:
         pipeline_gate(dev, args.seed, smi)
         pipeline_gate_moe(dev, args.seed, smi)
         pipeline_run(dev, args.seed, train_ms[QWEN], smi)
-        pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False)
+        pipe_records = []
+        pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False,
+                     stage_flops=qwen_gg.base.total_flops() / 2, telemetry=pipe_records)
         counts = read_counts()
         log("pipeline", f"kernel launches over the phase: {counts} (none expected: the engine "
                         f"trains through the models' own routes)")
         if any(counts.values()):
             raise RuntimeError(f"the pipeline path launched a forward-only kernel: {counts}")
+        phase = "service"
+        reset_counts()
+        t0 = time.perf_counter()
+        phase_service(args.seed, pipe_records, qwen_gg, qwen_plan, smi)
+        counts = read_counts()
+        log("service", f"kernel launches over the phase: {counts} (none expected: serving "
+                       f"steps the prompt through the decode path); {time.perf_counter() - t0:.1f} "
+                       f"s in all")
+        if any(counts.values()):
+            raise RuntimeError(f"the service path launched a forward-only kernel: {counts}")
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
@@ -1961,6 +2227,7 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)
         return 1
+    log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,8 +28,13 @@ GPU_PEAKS = {
     "T4": {"peak_flops": 8.1e12, "util": 0.40, "mem": 16e9},
     "TPUv5e": {"peak_flops": 197e12, "util": 0.5, "mem": 16e9},
     "TPUv4": {"peak_flops": 275e12, "util": 0.5, "mem": 32e9},
-    # NVIDIA H100 SXM 80GB, 700 W data sheet (bf16 dense); util is a prior
-    "H100": {"peak_flops": 989e12, "util": 0.5, "mem": 80e9},
+    # NVIDIA H100 SXM 80GB, 700 W data sheet (bf16 dense). util is fitted
+    # by runtime.calibration.fit_profile from the pipeline engines' F/B
+    # events of full-width qwen2-1.5b on an H100 80GB HBM3 at 700 W
+    # (chip_smoke.py, service phase): 0.0654 and 0.0493 in two runs, here
+    # their mean. It is the traced graph's FLOPs over the events' wall time,
+    # host dispatch included; bf16 GEMMs alone fit 0.82-0.85.
+    "H100": {"peak_flops": 989e12, "util": 0.057, "mem": 80e9},
 }
 
 # effective throughput view (peak x default utilization) — kept for

@@ -1,23 +1,30 @@
-"""Step telemetry, the part of ``repro.runtime.telemetry`` that the train
-launcher uses: ``StepRecord``, an append-only ``MeasurementStore`` in the same
-JSONL format (``repro``'s store reads the port's logs), and ``StepTimer``.
+"""Step telemetry: instrumented timers + an append-only measurement log.
 
-The rest of the runtime-feedback subsystem (reading, calibration, drift)
-is a later slice (ROADMAP, queue 1, item 7).
+A ``StepRecord`` is one observed training/serving step: wall time plus —
+when the executor can attribute them — per-device busy seconds, per-link
+busy seconds, per-op compute samples, and per-collective transfer
+samples. Records are keyed by the service layer's graph/topology
+fingerprints so the feedback loop can join observations back to cached
+plans.
+
+``MeasurementStore`` persists records as append-only JSONL (one line per
+step, ``fcntl``-locked appends so concurrent launchers can share a log);
+``StepTimer`` wraps a step callable (``launch.steps`` /
+``launch.train`` / ``launch.serve``) and records each invocation.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 import json
 import os
 import time
-from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 try:
     import fcntl
-except ImportError:                       # non-posix: appends are not locked
+except ImportError:                       # non-posix: locking degrades
     fcntl = None
 
 TELEMETRY_FILE = "measurements.jsonl"
@@ -33,7 +40,11 @@ class StepRecord:
     device_busy: dict = field(default_factory=dict)   # str(dev) -> busy s
     link_busy: dict = field(default_factory=dict)     # "gi-gj" -> busy s
     compute: list = field(default_factory=list)
+    # compute sample: {"gpu_type", "flops", "time"}
     collectives: list = field(default_factory=list)
+    # collective sample: {"kind": allreduce|ps|xfer, "nbytes", "n_dev",
+    #                     "nominal_bw" (spec-sheet B/s), "link":
+    #                     intra|cross|p2p, "time"}
     meta: dict = field(default_factory=dict)
     ts: float = 0.0                        # record timestamp (epoch s)
 
@@ -46,12 +57,28 @@ class StepRecord:
             "meta": self.meta, "ts": self.ts,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "StepRecord":
+        return cls(
+            graph_fp=d.get("graph_fp", ""), topo_fp=d.get("topo_fp", ""),
+            step=int(d.get("step", 0)),
+            wall_time=float(d.get("wall_time", 0.0)),
+            device_busy=d.get("device_busy", {}),
+            link_busy=d.get("link_busy", {}),
+            compute=d.get("compute", []),
+            collectives=d.get("collectives", []),
+            meta=d.get("meta", {}), ts=float(d.get("ts", 0.0)))
+
 
 class MeasurementStore:
-    """Append-only JSONL measurement log. ``path=None`` keeps records in
-    memory; a directory gets a ``measurements.jsonl`` inside; a ``.jsonl``
-    path is the log itself. Each append is one line written under an
-    ``fcntl`` exclusive lock, so several processes can share a log."""
+    """Append-only JSONL measurement log.
+
+    ``path=None`` keeps records in memory only (tests, single-process
+    benchmarks). With a path — a directory (a ``measurements.jsonl`` is
+    created inside) or a ``.jsonl`` file — appends are atomic
+    single-line writes under an ``fcntl`` exclusive lock, so multiple
+    launcher processes can share one log.
+    """
 
     def __init__(self, path: str | None = None):
         if path and not path.endswith(".jsonl"):
@@ -61,6 +88,9 @@ class MeasurementStore:
             os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self.path = path
         self._mem: list = []
+        # incremental-reader cursor (``read_new``): byte offset of the
+        # first unconsumed line (memory mode: index into ``_mem``)
+        self._offset = 0
 
     def append(self, rec: StepRecord) -> StepRecord:
         if not rec.ts:
@@ -79,6 +109,143 @@ class MeasurementStore:
                 if fcntl is not None:
                     fcntl.flock(f, fcntl.LOCK_UN)
         return rec
+
+    @staticmethod
+    def _parse(line, graph_fp, topo_fp):
+        """StepRecord of a JSONL line passing the substring pre-filter and
+        the exact fingerprint match, else None."""
+        if isinstance(line, bytes):
+            try:
+                line = line.decode()
+            except UnicodeDecodeError:
+                return None
+        line = line.strip()
+        if not line:
+            return None
+        if graph_fp is not None and graph_fp not in line:
+            return None
+        if topo_fp is not None and topo_fp not in line:
+            return None
+        try:
+            rec = StepRecord.from_dict(json.loads(line))
+        except (ValueError, KeyError):
+            return None                   # torn/garbled line: skip
+        if graph_fp is not None and rec.graph_fp != graph_fp:
+            return None
+        if topo_fp is not None and rec.topo_fp != topo_fp:
+            return None
+        return rec
+
+    def records(self, *, graph_fp: str | None = None,
+                topo_fp: str | None = None,
+                limit: int | None = None) -> list:
+        """Matching records, oldest first; ``limit`` keeps the newest N.
+
+        Lines are pre-filtered by raw substring before JSON parsing, so
+        fingerprint-keyed queries over a large log only pay full parse
+        cost for matching steps. With ``limit`` the log is read BACKWARDS
+        in blocks (``tail``) — a long-running observe loop polling the
+        newest N records stays O(tail), not O(log).
+        """
+        if self.path is not None and limit is not None:
+            return self.tail(limit, graph_fp=graph_fp, topo_fp=topo_fp)
+        if self.path is None:
+            out = [r for r in self._mem
+                   if (graph_fp is None or r.graph_fp == graph_fp)
+                   and (topo_fp is None or r.topo_fp == topo_fp)]
+        else:
+            out = []
+            if os.path.exists(self.path):
+                with open(self.path) as f:
+                    for line in f:
+                        rec = self._parse(line, graph_fp, topo_fp)
+                        if rec is not None:
+                            out.append(rec)
+        if limit is not None:
+            out = out[-limit:]
+        return out
+
+    def tail(self, limit: int, *, graph_fp: str | None = None,
+             topo_fp: str | None = None,
+             block_size: int = 1 << 16) -> list:
+        """Newest ``limit`` matching records, oldest first, reading the
+        log backwards in ``block_size`` chunks — cost is proportional to
+        the tail, not the full log."""
+        if limit <= 0:
+            return []
+        if self.path is None:
+            out = [r for r in self._mem
+                   if (graph_fp is None or r.graph_fp == graph_fp)
+                   and (topo_fp is None or r.topo_fp == topo_fp)]
+            return out[-limit:]
+        if not os.path.exists(self.path):
+            return []
+        out = []
+        with open(self.path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            pos = f.tell()
+            buf = b""
+            while pos > 0 and len(out) < limit:
+                size = min(block_size, pos)
+                pos -= size
+                f.seek(pos)
+                buf = f.read(size) + buf
+                lines = buf.split(b"\n")
+                # lines[0] may be a partial line continuing into the
+                # previous (unread) block — keep it buffered
+                buf = lines[0] if pos > 0 else b""
+                start = 1 if pos > 0 else 0
+                for line in reversed(lines[start:]):
+                    rec = self._parse(line, graph_fp, topo_fp)
+                    if rec is not None:
+                        out.append(rec)
+                        if len(out) >= limit:
+                            break
+        out.reverse()
+        return out
+
+    def read_new(self, *, graph_fp: str | None = None,
+                 topo_fp: str | None = None) -> list:
+        """Records appended since the previous ``read_new`` call (oldest
+        first) — the O(new records) incremental reader for long-running
+        observe/feedback polls. Only COMPLETE lines are consumed: a
+        torn in-flight append stays buffered for the next poll. A
+        truncated/rotated log resets the cursor and replays from the
+        start."""
+        if self.path is None:
+            out = [r for r in self._mem[self._offset:]
+                   if (graph_fp is None or r.graph_fp == graph_fp)
+                   and (topo_fp is None or r.topo_fp == topo_fp)]
+            self._offset = len(self._mem)
+            return out
+        if not os.path.exists(self.path):
+            self._offset = 0
+            return []
+        size = os.path.getsize(self.path)
+        if size < self._offset:          # rotated/truncated underneath us
+            self._offset = 0
+        out = []
+        with open(self.path, "rb") as f:
+            f.seek(self._offset)
+            data = f.read()
+        end = data.rfind(b"\n")
+        if end < 0:
+            return []
+        for line in data[:end].split(b"\n"):
+            rec = self._parse(line, graph_fp, topo_fp)
+            if rec is not None:
+                out.append(rec)
+        self._offset += end + 1
+        return out
+
+    def __len__(self):
+        """Total record count — a line count, no JSON parse."""
+        if self.path is None:
+            return len(self._mem)
+        if not os.path.exists(self.path):
+            return 0
+        with open(self.path) as f:
+            return sum(1 for line in f if line.strip())
 
 
 def _cuda_devices(obj, out: set) -> set:
@@ -139,3 +306,33 @@ class StepTimer:
         return {"steps": int(w.size), "mean_s": float(w.mean()),
                 "median_s": float(np.median(w)), "p90_s":
                 float(np.percentile(w, 90)), "total_s": float(w.sum())}
+
+
+def observed_sim_result(records: list, topo):
+    """Aggregate observed StepRecords into a ``SimResult``-shaped object.
+
+    The GNN's runtime-feedback features (makespan, per-device idle %,
+    per-link idle %) are normally read off the simulator; this builds the
+    same container from MEASURED telemetry so ``core.features.featurize
+    (..., observed=...)`` feeds real signals to trained policies.
+    Group-level features (per-group makespan, idle-before-transfer) stay
+    empty unless a record carries them — real executions observe devices
+    and links, not op groups.
+    """
+    from repro_torch.core.simulator import SimResult
+    if not records:
+        raise ValueError("observed_sim_result needs at least one record")
+    makespan = float(np.median([r.wall_time for r in records]))
+    dev_busy: dict = {}
+    link_busy: dict = {}
+    n = len(records)
+    for r in records:
+        for d, b in r.device_busy.items():
+            dev_busy[int(d)] = dev_busy.get(int(d), 0.0) + float(b) / n
+        for k, b in r.link_busy.items():
+            gi, gj = (int(x) for x in str(k).split("-"))
+            link_busy[(gi, gj)] = link_busy.get((gi, gj), 0.0) \
+                + float(b) / n
+    return SimResult(
+        makespan=makespan, feasible=True, task_start=[], task_finish=[],
+        device_busy=dev_busy, peak_mem={}, link_busy=link_busy)

@@ -514,6 +514,116 @@ def test_scan_engine_captured_matches_uncaptured(case, arch):
     torch.cuda.synchronize()
 
 
+def _gnn_case():
+    """A reduced qwen2-1.5b graph traced on meta tensors and grouped, the
+    testbed, and its featurized empty strategy."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.core import tag as tag_mod
+    from repro_torch.core.device import testbed
+    from repro_torch.core.features import featurize
+    from repro_torch.core.strategy import Strategy
+    from repro_torch.models.model import abstract_params, input_specs, loss_fn
+    cfg = get_reduced("qwen2-1.5b")
+    gg = tag_mod.build_grouped(lambda p, b: loss_fn(cfg, p, b, remat=False)[0],
+                               abstract_params(cfg),
+                               input_specs(cfg, InputShape("plan", 32, 4, "train")), "qwen", 10)
+    topo = testbed()
+    return gg, topo, featurize(gg, topo, Strategy.empty(gg.n), None, 0)
+
+
+@pytest.mark.gpu
+def test_gnn_priors_and_gradient_on_card_match_cpu():
+    """The GNN on the card against the CPU from the same parameters: priors
+    at 1e-5; ``record_loss_core``'s gradient, f32 on the card, within 2e-5 of
+    a leaf's scale of the f64 gradient on the CPU (f32 rounding, as in
+    tests/test_torch_gnn.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import hetgnn, trainer
+    from repro_torch.core.mcts import MCTS
+    from repro_torch.core.strategy import candidate_actions
+    gg, topo, het = _gnn_case()
+    state = trainer.init_trainer(seed=0, device="cpu")
+    cuda = hetgnn.params_from_numpy(state.params, "cuda")
+    actions = candidate_actions(topo, has_grad=True)
+    for gid in (0, gg.n - 1):
+        on_card = hetgnn.policy_probs(state.cfg, cuda, het, gid, actions)
+        assert on_card.device.type == "cuda"
+        torch.testing.assert_close(on_card.cpu(), hetgnn.policy_probs(
+            state.cfg, state.params, het, gid, actions), rtol=0, atol=1e-5)
+    records = MCTS(gg, topo, seed=0, record_threshold=4).search(8).visit_records
+    assert records
+    for het_r, gid, acts, pi in records[:2]:
+        P, O, mask = hetgnn.actions_to_arrays(acts, het_r.dev_x.shape[0])
+        pi_pad = np.zeros((P.shape[0],), np.float32)
+        pi_pad[:len(pi)] = pi
+        grads = {}
+        for name, params in (("card", cuda), ("f64", {k: v.double() for k, v in
+                                                       state.params.items()})):
+            leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+            loss = hetgnn.record_loss_core(state.cfg, leaves, hetgnn._het_arrays(het_r), gid,
+                                           P, O, mask, pi_pad)
+            grads[name] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        for k, ref in grads["f64"].items():
+            err = float((grads["card"][k].cpu().double() - ref).abs().max())
+            assert err <= 2e-5 * max(1.0, float(ref.abs().max())), k
+
+
+@pytest.mark.gpu
+def test_cached_policy_mcts_stays_on_the_card():
+    """A ``CachedPolicy``-guided MCTS on the card: one encoder run a search,
+    the embeddings and candidate slices stay on the card, and once they are
+    there (after a first search) the only synchronizing copies are the
+    probabilities back to the host, one an expansion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+    from repro_torch.core import trainer
+    from repro_torch.core.mcts import MCTS
+    gg, topo, _ = _gnn_case()
+    state = trainer.init_trainer(seed=0)
+    pol = trainer.make_policy(state.cfg, state.params)
+    assert all(v.device.type == "cuda" for v in pol.params.values())
+    first = MCTS(gg, topo, policy=pol, seed=0).search(10)
+    assert pol.misses == 1 and pol.hits >= 5 and first.best_reward >= 1.0 - 1e-9
+    assert all(e.device.type == "cuda" for e in next(iter(pol._cache.values())))
+    assert all(t.device.type == "cuda" for sl in pol._slices.values() for t in sl)
+    calls = pol.hits + pol.misses
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            MCTS(gg, topo, policy=pol, seed=1).search(20)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    expansions = pol.hits + pol.misses - calls
+    assert pol.misses == 1 and expansions >= 5
+    assert len(syncs) == expansions, [str(w.message) for w in syncs[:3]]
+
+
+@pytest.mark.gpu
+def test_serve_plan_topo_observe_smoke_on_card(tmp_path, capsys):
+    """``serve --smoke --plan-topo testbed --observe`` on the card: a cold
+    plan, the observation fed back, and a cache hit the second time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import serve as tserve
+    argv = ["--arch", "qwen2-1.5b", "--smoke", "--plan-topo", "testbed", "--observe",
+            "--batch", "2", "--prompt-len", "8", "--gen", "4", "--plan-iters", "4",
+            "--plan-cache", str(tmp_path / "plans"), "--telemetry-dir", str(tmp_path / "t")]
+    tserve.main(argv)
+    first = capsys.readouterr().out
+    tserve.main(argv)
+    second = capsys.readouterr().out
+    assert "plan[testbed] source=cold iters=4" in first and "on cuda" in first
+    assert "observe[testbed] step=" in first and "kind=" in first
+    assert "plan[testbed] source=hit iters=0" in second
+
+
 @pytest.mark.gpu
 def test_scan_engine_capture_refuses_a_host_copy():
     """A stage that copies from the host inside a loop cannot be captured:

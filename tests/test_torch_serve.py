@@ -136,6 +136,12 @@ def test_port_imports_neither_jax_nor_repro():
             "verify/collectives.py", "verify/placement.py", "verify/verifier.py",
             "verify/mutate.py", "parallel/sfb_dense.py", "exec/engine.py",
             "exec/model_split.py", "launch/mesh.py"} <= scanned
+    # the planner service, runtime feedback and the GNN policy
+    assert {"obs/metrics.py", "service/__init__.py", "service/fingerprint.py",
+            "service/store.py", "service/warmstart.py", "service/registry.py",
+            "service/planner.py", "service/cli.py", "runtime/__init__.py",
+            "runtime/calibration.py", "runtime/drift.py", "runtime/executor.py",
+            "runtime/feedback.py", "core/hetgnn.py", "core/trainer.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):
