@@ -99,7 +99,11 @@ Phases, each printed on lines of its own and each fatal when it fails:
            steps without per-event synchronization (the first captures the
            compiled engine's graphs), timed, and one profiled. On one card
            this checks the schedule and the gradients and measures the
-           engines' overhead, not overlap.
+           engines' overhead, not overlap. Each ``run_pipeline`` call also
+           writes its last step's ``trace_executed.json`` (validated, the
+           schedule's F/B/W events or the compiled engine's loops) and spools
+           its events under its run id for the obs phase; the timed
+           ``build_pipeline`` steps neither trace nor spool.
 11. service the planner service, runtime feedback and the GNN policy, every
            kernel count at 0 just before them: ``launch/serve.py`` with
            ``--plan-topo h100 --observe`` on full-width qwen2-1.5b in bf16
@@ -117,7 +121,25 @@ Phases, each printed on lines of its own and each fatal when it fails:
            full-width trace's FLOPs), and the full-width qwen2-1.5b plan
            simulated under the prior and under the fit, and searched again
            under the fit.
-12. kernels one JSON line with every kernel's launches, error and times.
+12. obs     the observability plane, every kernel count at 0 just before it:
+           the plan phase's ``train --tag-search`` command again with
+           ``--trace-dir``, ``--spool-dir``, ``--run-id obs-train``,
+           ``--telemetry-dir`` and ``--xla-profile`` (the step runs 3 times,
+           the profiled one once, the losses the unprofiled run's; the spans'
+           trace validates; the torch.profiler trace holds CUDA kernels and
+           ``n_collectives`` is printed: 0 on one card, where no NCCL kernel
+           runs); ``PlannerService(device="cuda").serve_metrics`` over the
+           phase's spool and telemetry (the pipeline runs and ``obs-train``),
+           the hand-built pipeline's predicted timeline watched, every
+           endpoint read, the CLI's ``metrics --url`` and ``health --url``
+           against it; the CLI on the paper's zoo over ``h100`` (``plan
+           --model bert_large`` cold then hit, ``verify --model resnet101``,
+           ``verify --selftest``, ``trace --model transformer``, ``policy
+           train`` on the card), each command's seconds and each graph's
+           trace, simplify and partition seconds; ``dp_mlp_loss`` over
+           ``[cuda:0] * 2`` and ``* 4``, AR, PS and SFB, f32, against one
+           device, 1e-4.
+13. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -128,9 +150,11 @@ import argparse
 import concurrent.futures
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -216,6 +240,14 @@ DP_ARCH_LAYERS = {QWEN: 4, MAMBA: 4, OLMOE: 2}
 SERVICE_BATCH, SERVICE_PROMPT, SERVICE_GEN, SERVICE_PLAN_ITERS = 4, 64, 32, 20
 SERVICE_GNN_GROUPS, SERVICE_GNN_STEPS, SERVICE_GNN_PLAYOUTS = 12, 3, 12
 SERVICE_PRIOR_TOL = 1e-5
+# obs phase: the profiled run's id, and how far its bf16 losses may lie from
+# the plan phase's unprofiled run's (a second update in the profiled step
+# would move the next loss by far more); playouts of the search whose spans
+# the served spool shows; policy train on two zoo graphs (steps, playouts);
+# the SFB MLP (widths, rows split over 2 and 4)
+OBS_RUN_ID, OBS_LOSS_ATOL = "obs-train", 1e-3
+OBS_PLAN_ITERS, OBS_POLICY_STEPS, OBS_POLICY_PLAYOUTS = 8, 3, 12
+OBS_MLP_WIDTHS, OBS_MLP_ROWS = (1024, 4096, 1024), 64
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, B, S, H, KV, hd, causal, window, dtype)
@@ -1493,6 +1525,7 @@ def plan_tag_search(smi: str):
         raise RuntimeError(f"losses {losses}: not 3 finite losses, the first within "
                            f"{TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
     torch.cuda.empty_cache()
+    return losses
 
 
 def phase_dp(seed: int, smi: str):
@@ -1802,7 +1835,8 @@ def _leaf(tree, name: str, lo: int, hi: int):
 
 
 def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched: bool = True,
-                 stage_flops: float = 1e9, telemetry: list | None = None):
+                 stage_flops: float = 1e9, telemetry: list | None = None,
+                 obs_root: Path | None = None) -> dict:
     """``run_pipeline`` as a user runs it, full-width, full-depth qwen2-1.5b
     in bf16, 3 steps, once with each engine: with ``searched``, the 2-stage
     plan of ``plan_deployment`` (or a hand-built one where that plan has
@@ -1817,7 +1851,15 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
 
     A hand-built plan gives each stage ``stage_flops``; where ``telemetry``
     is a list, the StepRecords of a hand-built plan's runs are appended to it
-    (the service phase fits the H100 utilization from them)."""
+    (the service phase fits the H100 utilization from them).
+
+    With ``obs_root``, each ``run_pipeline`` call also gets ``trace_dir``,
+    ``spool_dir`` (``obs_root / "spool"``) and a run id, its
+    ``trace_executed.json`` must validate with the schedule's events (eager)
+    or loops (scan), and its StepRecords are appended to the telemetry log
+    ``obs_root / "telemetry"`` that the obs phase serves. The timed steps of
+    ``build_pipeline`` run without either. Returns ``{engine: (run id, plan,
+    schedule)}``."""
     import argparse
     import tempfile
     from repro_torch.configs import get_config
@@ -1841,13 +1883,17 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
     devices = [dev] * (per_stage * sp.n_stages)
     ln_v = float(np.log(cfg.vocab_size))
     single = "not measured" if train_step_ms is None else f"{train_step_ms:.3f} ms"
-    free = {}
+    free, runs = {}, {}
     for engine in ("eager", "scan"):
+        run_id = f"pipe-{engine}-{'searched' if searched else 'hand'}"
+        trace_dir = None if obs_root is None else obs_root / run_id
         args = argparse.Namespace(
             arch=QWEN, batch=PIPE_RUN_BATCH, seq=PIPE_RUN_SEQ, lr=TRAIN_LR, seed=seed,
             steps=PIPE_RUN_STEPS, log_every=1, ckpt_dir="", ckpt_every=0, resume=False,
             pipeline="auto", n_micro=PIPE_RUN_MICRO, n_chunks=2, telemetry_dir="",
-            engine=engine, scan_unroll=1)
+            engine=engine, scan_unroll=1, run_id=run_id,
+            trace_dir="" if trace_dir is None else str(trace_dir),
+            spool_dir="" if obs_root is None else str(obs_root / "spool"))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         with tempfile.TemporaryDirectory() as telem:
@@ -1860,6 +1906,9 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
         if hand_built and telemetry is not None:
             from repro_torch.runtime.telemetry import StepRecord
             telemetry.extend(StepRecord.from_dict(r) for r in recs)
+        if obs_root is not None:
+            runs[engine] = (run_id, sp, sp.schedule if args.pipeline == "auto" else args.pipeline)
+            obs_pipeline_trace(trace_dir, engine, sp, recs, obs_root, smi)
         peak = torch.cuda.max_memory_allocated(dev)
         times = [r["wall_time"] * 1e3 for r in recs]
         last = recs[-1]["meta"]
@@ -1887,8 +1936,8 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
             raise RuntimeError(f"pipeline losses {losses}: not {PIPE_RUN_STEPS} finite losses, "
                                f"the first within {TRAIN_LOSS_WINDOW} of ln V = {ln_v:.4f}")
         # the whole train step (engine, clip, AdamW) without per-event
-        # synchronization, then where its time goes
-        args.telemetry_dir = ""
+        # synchronization, then where its time goes; no trace, no spool
+        args.telemetry_dir = args.trace_dir = args.spool_dir = ""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         run = train_mod.build_pipeline(args, cfg, sp, devices)
@@ -1918,6 +1967,7 @@ def pipeline_run(dev, seed: int, train_step_ms: float | None, smi: str, searched
     log("pipeline", f"{source}: pipeline_step_ms eager {free['eager']:.3f}, scan "
                     f"{free['scan']:.3f} ({free['eager'] / free['scan']:.3f}x); single-device "
                     f"train_step_ms {single}; {smi}")
+    return runs
 
 
 def _serve_planned(argv: list) -> tuple:
@@ -2138,6 +2188,327 @@ def phase_service(seed: int, records: list, qwen_gg, qwen_plan, smi: str):
     service_calibration(records, qwen_gg, qwen_plan, smi)
 
 
+# ------------------------------------------------------------------- obs
+
+def obs_pipeline_trace(trace_dir: Path, engine: str, sp, recs: list, obs_root: Path, smi: str):
+    """Step 2 of the obs phase, inside the pipeline phase's ``run_pipeline``
+    calls: ``trace_executed.json`` validates and holds the last step's F/B/W
+    events (eager: the schedule's; scan: ``2U`` or ``3U`` loops); the
+    engine's records join the served telemetry log."""
+    from repro_torch.exec.schedule import flatten_schedule, make_schedule
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.runtime.telemetry import MeasurementStore, StepRecord
+    path = trace_dir / "trace_executed.json"
+    doc = validate_chrome_trace(json.loads(path.read_text()))
+    kinds = [e["name"][0] for e in doc["traceEvents"] if e["ph"] == "X"]
+    events = flatten_schedule(make_schedule(sp.schedule, sp.n_stages, sp.n_micro), sp.n_stages,
+                              sp.n_micro)
+    has_w = any(e.kind == "W" for e in events)
+    want = len(events) if engine == "eager" else (3 if has_w else 2) * sp.n_stages
+    store = MeasurementStore(str(obs_root / "telemetry"))
+    for r in recs:
+        store.append(StepRecord.from_dict(r))
+    shards = sorted(p.name for p in (obs_root / "spool").glob(f"{trace_dir.name}--*"))
+    log("obs", f"{trace_dir.name}: trace_executed.json valid, {len(kinds)} events (F "
+               f"{kinds.count('F')}, B {kinds.count('B')}, W {kinds.count('W')}; the "
+               f"{'schedule' if engine == 'eager' else 'loops'}: {want}), "
+               f"{path.stat().st_size} B; spool shards {shards}; {len(recs)} records to the "
+               f"served telemetry; {smi}")
+    if len(kinds) != want or set(kinds) - {"F", "B", "W"}:
+        raise RuntimeError(f"{trace_dir.name}: {len(kinds)} traced events {set(kinds)}, "
+                           f"want {want} F/B/W")
+    if len(shards) != 1:
+        raise RuntimeError(f"{trace_dir.name}: spool shards {shards}, want one")
+
+
+def _stdout_of(fn, *a, echo: bool = True):
+    """``fn(*a)`` with its standard output captured (and printed, with
+    ``echo``); returns (its result, the output)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = fn(*a)
+    finally:
+        if echo:
+            print(out.getvalue(), end="", flush=True)
+    return res, out.getvalue()
+
+
+def obs_train(root: Path, ref_losses: list, smi: str):
+    """Step 1: the plan phase's ``train --tag-search`` command (full-width
+    qwen2-1.5b, bf16, 8 x 512, single device after the plan's fallback,
+    3 steps) again with ``--trace-dir``, ``--spool-dir``, ``--run-id``,
+    ``--telemetry-dir`` and ``--xla-profile``: the train step runs 3 times
+    (the profiled step once), the losses are the plan phase's unprofiled
+    run's, ``trace_spans.json`` validates, the torch.profiler trace holds
+    CUDA kernels, the spool shard one span a step."""
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.runtime.telemetry import MeasurementStore
+    trace_dir, spool = root / "train-trace", root / "spool"
+    argv = TAG_SEARCH_ARGV + ["--trace-dir", str(trace_dir), "--spool-dir", str(spool),
+                              "--run-id", OBS_RUN_ID, "--telemetry-dir", str(root / "telemetry"),
+                              "--xla-profile"]
+    make, calls = steps_mod.make_train_step, []
+
+    def counting(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args, **kwargs):
+            calls.append(1)
+            return step(*args, **kwargs)
+        return run
+
+    steps_mod.make_train_step = counting
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        losses, out = _stdout_of(train_mod.main, argv)
+    finally:
+        steps_mod.make_train_step = make
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    line = next(ln for ln in out.splitlines() if ln.startswith("xla-profile: "))
+    meta = json.loads(line[len("xla-profile: "):line.index(" (")])
+    spans = validate_chrome_trace(json.loads((trace_dir / "trace_spans.json").read_text()))
+    n_spans = sum(e["ph"] == "X" for e in spans["traceEvents"])
+    prof = json.loads(Path(meta["trace_file"]).read_text())["traceEvents"]
+    kernels = [e for e in prof if e.get("cat") == "kernel"]
+    recs = [r for r in MeasurementStore(str(root / "telemetry")).records()
+            if r.meta.get("run_id") == OBS_RUN_ID]
+    shard = [json.loads(ln) for p in spool.glob(f"{OBS_RUN_ID}--train-*")
+             for ln in p.read_text().splitlines()]
+    steps = [r["name"] for r in shard if r["type"] == "span" and r["cat"] == "train"]
+    diff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    log("obs", f"train --tag-search with --trace-dir --spool-dir --run-id {OBS_RUN_ID} "
+               f"--telemetry-dir --xla-profile: {QWEN} full width, batch 8 x 512, 3 steps, "
+               f"{wall:.1f} s; train step called {len(calls)} times; losses "
+               f"{', '.join(f'{x:.4f}' for x in losses)} against the unprofiled run's "
+               f"{', '.join(f'{x:.4f}' for x in ref_losses)} (max |diff| {diff:.3e}, tolerance "
+               f"{OBS_LOSS_ATOL:g}); profiler {meta['profiler']}, n_collectives "
+               f"{meta.get('n_collectives')} (one card: no NCCL kernel), "
+               f"{len(kernels)} CUDA kernel events of {len(prof)} in "
+               f"{Path(meta['trace_file']).stat().st_size / 1e6:.1f} MB; step ms "
+               f"{', '.join(f'{r.wall_time * 1e3:.3f}' for r in recs)} (step 1 profiled); "
+               f"trace_spans.json {n_spans} spans; spool {steps}; kernel launches {counts}; "
+               f"{smi}")
+    if len(calls) != 3 or not diff <= OBS_LOSS_ATOL:
+        raise RuntimeError(f"the profiled run called the step {len(calls)} times; losses "
+                           f"{losses} against {ref_losses}")
+    if meta["profiler"] != "ok" or not kernels or n_spans == 0:
+        raise RuntimeError(f"profile {meta}, {len(kernels)} kernel events, {n_spans} spans")
+    if len(recs) != 3 or steps != ["step 0", "step 1", "step 2"] or any(counts.values()):
+        raise RuntimeError(f"{len(recs)} telemetry records, spool spans {steps}, launches "
+                           f"{counts}")
+
+
+def obs_serve(root: Path, watch: tuple, smi: str):
+    """Step 3: ``PlannerService(device="cuda").serve_metrics`` on 127.0.0.1,
+    port 0, over the phase's spool and telemetry, after a search of the
+    reduced qwen2-1.5b graph with the tracer on (its spans join the spool
+    at a scrape), the hand-built pipeline's predicted timeline watched under
+    its run id; every endpoint read, and the CLI's ``metrics --url`` and
+    ``health --url`` against the same server."""
+    import urllib.request
+    from repro_torch.core.device import h100_nodes
+    from repro_torch.exec.schedule import make_schedule, simulate_schedule
+    from repro_torch.obs import (
+        Tracer, parse_prometheus_text, set_tracer, validate_chrome_trace)
+    from repro_torch.service import PlannerService
+    from repro_torch.service import cli as cli_mod
+    run_id, sp, schedule = watch
+    topo = h100_nodes()
+    tl = simulate_schedule(sp, topo, make_schedule(schedule, sp.n_stages, sp.n_micro))
+    svc = PlannerService(cache_dir=str(root / "plans"), telemetry_dir=str(root / "telemetry"),
+                         device="cuda")
+    old = set_tracer(Tracer(enabled=True))
+    server = None
+    try:
+        gg = _reduced_grouped(QWEN, SERVICE_GNN_GROUPS)
+        resp = svc.plan_graph(gg, topo, iterations=OBS_PLAN_ITERS, seed=0)
+        # the SLO: the watched pipeline's predicted step, 5 % over
+        server = svc.serve_metrics(host="127.0.0.1", port=0, spool_dir=str(root / "spool"),
+                                   run_id=OBS_RUN_ID, slo_s=tl.makespan * 1.05)
+        server.health.watch(run_id, timeline=tl)
+        timed = {}
+
+        def get(path):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(server.url + path, timeout=60) as r:
+                body = r.read().decode()
+            timed[path] = (time.perf_counter() - t0) * 1e3
+            return body
+
+        fams = parse_prometheus_text(get("/metrics"))
+        healthz = json.loads(get("/healthz"))
+        plans = json.loads(get("/plans"))
+        verify = json.loads(get(f"/plans/{resp.graph_fp}/verify"))
+        runs = [r["run_id"] for r in json.loads(get("/runs"))["runs"]]
+        health = {r: json.loads(get(f"/runs/{r}/health")) for r in runs}
+        alerts = json.loads(get("/alerts"))
+        doc = validate_chrome_trace(json.loads(get(f"/traces/{OBS_RUN_ID}")))
+        procs = sorted({e["args"]["name"] for e in doc["traceEvents"]
+                        if e["ph"] == "M" and e["name"] == "process_name"})
+        rc_m, prom = _stdout_of(cli_mod.main, ["metrics", "--url", server.url], echo=False)
+        parse_prometheus_text(prom)
+        rc_h, h_out = _stdout_of(cli_mod.main, ["health", "--url", server.url], echo=False)
+        cli_health = json.loads(h_out)
+        watched = health.get(run_id, {})
+        log("obs", f"serve_metrics at {server.url}: {len(fams)} metric families; healthz "
+                   f"{healthz['status']}; {plans['store_size']} plan, verify "
+                   f"{[m['verify'] for m in verify['matches']]}; runs {runs}; {run_id} mode "
+                   f"{watched.get('mode')}, step_ratio {watched.get('step_ratio')}, dominant "
+                   f"{watched.get('dominant')}; predicted step {tl.makespan * 1e3:.3f} ms; alerts "
+                   f"{[(a['run_id'], a['rule'], a['state']) for a in alerts['alerts']]}; "
+                   f"/traces/{OBS_RUN_ID} {sum(e['ph'] == 'X' for e in doc['traceEvents'])} "
+                   f"spans from {procs}; ms a request "
+                   f"{ {k: round(v, 3) for k, v in timed.items()} }; CLI metrics --url rc {rc_m}, "
+                   f"health --url rc {rc_h} ({len(cli_health['health'])} runs); {smi}")
+        if OBS_RUN_ID not in runs or run_id not in runs or watched.get("mode") != "predicted":
+            raise RuntimeError(f"/runs {runs}, {run_id} health {watched}")
+        if {p.split(" ")[0] for p in procs} != {"train", "planner"}:
+            raise RuntimeError(f"/traces/{OBS_RUN_ID} holds the shards of {procs}")
+        if rc_m or rc_h or sorted(cli_health["health"]) != sorted(runs):
+            raise RuntimeError(f"CLI metrics rc {rc_m}, health rc {rc_h}")
+    finally:
+        if server is not None:
+            server.stop()
+        set_tracer(old)
+
+
+def obs_cli(root: Path, smi: str):
+    """Step 4: the service CLI on the zoo's graphs at the paper's sizes over
+    ``h100``: ``plan --model bert_large`` cold, then a hit; ``verify --model
+    resnet101`` and ``verify --selftest``; ``trace --model transformer``
+    (four schedules, predicted against replayed); ``policy train`` on
+    bert_small and vgg19, on the card. Each command's seconds and each
+    graph's trace, simplify and partition seconds."""
+    from repro_torch.core.graph import CompGraph
+    from repro_torch.service import cli as cli_mod
+    cache = str(root / "cli-plans")
+    cmds = [("plan bert_large", ["plan", "--model", "bert_large", "--topo", "h100",
+                                 "--cache-dir", cache]),
+            ("plan bert_large", ["plan", "--model", "bert_large", "--topo", "h100",
+                                 "--cache-dir", cache]),
+            ("verify resnet101", ["verify", "--model", "resnet101", "--topo", "h100",
+                                  "--cache-dir", cache, "--json"]),
+            ("verify --selftest", ["verify", "--selftest"]),
+            ("trace transformer", ["trace", "--model", "transformer", "--topo", "h100",
+                                   "--out-dir", str(root / "cli-traces")]),
+            ("policy train", ["policy", "train", "--models", "bert_small", "vgg19", "--name",
+                              "obs", "--steps", str(OBS_POLICY_STEPS), "--mcts-iters",
+                              str(OBS_POLICY_PLAYOUTS), "--cache-dir", cache])]
+    timed = {"trace": [], "simplify": [], "partition": []}
+
+    def timer(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    patched = [(cli_mod, "trace_training_graph"), (CompGraph, "simplify"), (cli_mod, "partition")]
+    saved = [getattr(o, n) for o, n in patched]
+    for (o, n), key in zip(patched, timed):
+        setattr(o, n, timer(key, getattr(o, n)))
+    results = []
+    try:
+        for label, argv in cmds:
+            marks = {k: len(v) for k, v in timed.items()}
+            t0 = time.perf_counter()
+            rc, out = _stdout_of(cli_mod.main, argv, echo=False)
+            secs = time.perf_counter() - t0
+            graphs = ", ".join(
+                f"{k} {' + '.join(f'{x:.2f}' for x in v[marks[k]:])} s"
+                for k, v in timed.items() if len(v) > marks[k])
+            res = json.loads(out)
+            results.append((label, rc, res))
+            log("obs", f"CLI {' '.join(argv[:3])}: rc {rc}, {secs:.2f} s"
+                       + (f" ({graphs})" if graphs else "") + "; " + _cli_summary(res) + f"; {smi}")
+    finally:
+        for (o, n), f in zip(patched, saved):
+            setattr(o, n, f)
+    (_, rc1, cold), (_, rc2, hit) = results[0], results[1]
+    if (rc1, cold["source"], rc2, hit["source"], hit["iterations_run"]) != (0, "cold", 0, "hit", 0):
+        raise RuntimeError(f"plan bert_large: {cold['source']} then {hit['source']}")
+    if any(rc for _, rc, _ in results[2:]) or not results[3][2]["ok"]:
+        raise RuntimeError(f"CLI exit codes {[rc for _, rc, _ in results]}")
+    if sorted(results[4][2]["schedules"]) != sorted(cli_mod.SCHEDULES):
+        raise RuntimeError(f"trace schedules {sorted(results[4][2]['schedules'])}")
+
+
+def _cli_summary(res: dict) -> str:
+    if "ok" in res:
+        return f"selftest ok {res['ok']}"
+    if "schedules" in res:
+        return "step_error_frac " + ", ".join(
+            f"{k} {v['step_error_frac']:.3e} (predicted {v['predicted_step_s'] * 1e3:.3f} ms, "
+            f"bubble {v['bubble_frac']:.3f})" for k, v in res["schedules"].items())
+    if "registered" in res:
+        return f"registered {res['registered']}, final_loss {res['final_loss']}"
+    if "verdict" in res:
+        return f"source {res['source']}, verdict {res['verdict']}, {res['summary']}"
+    if "source" in res:
+        key = '{source="%s"}' % res["source"]
+        seconds = res["stats"]["metrics"]["planner_plan_seconds"]["series"][key]["sum"]
+        return (f"source {res['source']}, {res['iterations_run']} playouts, plan_graph "
+                f"{seconds:.3f} s, simulated {res['time_s'] * 1e3:.3f} ms, speedup "
+                f"{res['speedup']}")
+    return json.dumps(res)[:200]
+
+
+def obs_mlp(smi: str):
+    """Step 5: ``dp_mlp_loss`` over ``[cuda:0] * 2`` and ``* 4`` for each
+    sync mode, f32, TF32 off, against the same MLP on one device: each
+    leaf's gradient within ``DP_TOL`` of its max (the DP gate's rule)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sfb_dense import dp_mlp_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ps = [(torch.randn(a, b, device=dev, generator=gen) / a ** 0.5).requires_grad_()
+          for a, b in zip(OBS_MLP_WIDTHS[:-1], OBS_MLP_WIDTHS[1:])]
+    x = torch.randn(OBS_MLP_ROWS, OBS_MLP_WIDTHS[0], device=dev, generator=gen)
+    y = torch.randn(OBS_MLP_ROWS, OBS_MLP_WIDTHS[-1], device=dev, generator=gen)
+    h = x
+    for i, w in enumerate(ps):
+        h = h @ w if i == len(ps) - 1 else torch.relu(h @ w)
+    one = torch.autograd.grad(((h - y) ** 2).mean(), ps)
+    errs = {}
+    for k in (2, 4):
+        for sync in ("allreduce", "ps", "sfb"):
+            loss = dp_mlp_loss(make_mesh((k,), ("data",), [dev] * k), "data", sync,
+                               OBS_MLP_WIDTHS)
+            got = torch.autograd.grad(loss(ps, x, y), ps)
+            errs[(k, sync)] = max(_rel(g, r) for g, r in zip(got, one))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    log("obs", f"dp_mlp_loss, widths {OBS_MLP_WIDTHS}, batch {OBS_MLP_ROWS}, f32: max |g - g1| "
+               f"/ max |g1| a leaf against one device "
+               f"{ {f'{s} x{k}': f'{e:.3e}' for (k, s), e in errs.items()} } (tolerance "
+               f"{DP_TOL:g}); {smi}")
+    if not all(e <= DP_TOL for e in errs.values()):
+        raise RuntimeError(f"dp_mlp_loss gradients off: {errs}")
+
+
+def phase_obs(root: Path, tag_losses: list, watch: tuple, smi: str):
+    """The observability plane on the card (steps 1, 3, 4 and 5; step 2 ran
+    inside the pipeline phase)."""
+    t0 = time.perf_counter()
+    obs_train(root, tag_losses, smi)
+    t1 = time.perf_counter()
+    obs_serve(root, watch, smi)
+    t2 = time.perf_counter()
+    obs_cli(root, smi)
+    t3 = time.perf_counter()
+    obs_mlp(smi)
+    log("obs", f"seconds: train {t1 - t0:.1f}, serve {t2 - t1:.1f}, CLI {t3 - t2:.1f}, "
+               f"dp_mlp_loss {time.perf_counter() - t3:.1f}")
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2150,6 +2521,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase = "env"
+    obs_root = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
     try:
         smi = phase_env()
         phase = "build"
@@ -2182,7 +2554,7 @@ def main(argv=None) -> int:
         phase = "plan"
         graphs = {arch: plan_trace(arch, smi) for arch in (QWEN, MAMBA)}
         plan_gemm_profile(smi)
-        plan_tag_search(smi)
+        tag_losses = plan_tag_search(smi)
         qwen_gg, qwen_plan = plan_search(QWEN, graphs.pop(QWEN), smi)
         plan_search(MAMBA, graphs.pop(MAMBA), smi)
         phase = "dp"
@@ -2198,10 +2570,11 @@ def main(argv=None) -> int:
         dev = torch.device("cuda", 0)
         pipeline_gate(dev, args.seed, smi)
         pipeline_gate_moe(dev, args.seed, smi)
-        pipeline_run(dev, args.seed, train_ms[QWEN], smi)
+        pipeline_run(dev, args.seed, train_ms[QWEN], smi, obs_root=obs_root)
         pipe_records = []
-        pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False,
-                     stage_flops=qwen_gg.base.total_flops() / 2, telemetry=pipe_records)
+        hand_runs = pipeline_run(dev, args.seed, train_ms[QWEN], smi, searched=False,
+                                 stage_flops=qwen_gg.base.total_flops() / 2,
+                                 telemetry=pipe_records, obs_root=obs_root)
         counts = read_counts()
         log("pipeline", f"kernel launches over the phase: {counts} (none expected: the engine "
                         f"trains through the models' own routes)")
@@ -2217,6 +2590,14 @@ def main(argv=None) -> int:
                        f"s in all")
         if any(counts.values()):
             raise RuntimeError(f"the service path launched a forward-only kernel: {counts}")
+        phase = "obs"
+        reset_counts()
+        phase_obs(obs_root, tag_losses, hand_runs["eager"], smi)
+        counts = read_counts()
+        log("obs", f"kernel launches over the phase: {counts} (none expected: training, the "
+                   f"planner and the CLI run the plain routes)")
+        if any(counts.values()):
+            raise RuntimeError(f"the obs path launched a forward-only kernel: {counts}")
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
@@ -2227,6 +2608,8 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"[{phase}] FAILED", flush=True)
         return 1
+    finally:
+        shutil.rmtree(obs_root, ignore_errors=True)
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

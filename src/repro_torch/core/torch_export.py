@@ -19,6 +19,11 @@ of the dim whose outermost factor is the batch, through views, permutes,
 broadcasts, gathers and products, instead of ``jax_export``'s "dim 0 ==
 batch size". The MoE dispatch gathers the batch's rows into expert slots,
 so the expert products are CONCAT and their weight gradients SUM.
+aten's ``convolution_backward`` computes the input's, the weight's and the
+bias's gradients in one op, where ``jax_export`` sees a transposed
+convolution for each of the first two and a reduction for the third, so it
+becomes one node a requested gradient: the input's keeps the batch (CONCAT),
+the weight's and the bias's sum over it (SUM, gradient producers).
 A linear rearrangement of partial sums over the batch (the ``stack`` of
 per-layer weight gradients that ``jax_export`` sees once inside the
 scanned layer body) stays Split.SUM.
@@ -108,6 +113,8 @@ def _flops(name: str, target, ins: list, outs: list) -> float:
         return 2.0 * out.numel() * ins[1].shape[-1]
     if name == "convolution":        # weight (out_c, in_c / groups, *kernel)
         return 2.0 * out.numel() * math.prod(ins[1].shape[1:])
+    if name == "max_pool2d_with_indices":    # one compare an input element
+        return float(ins[0].numel())
     if name in _TRIVIAL:
         return 0.0
     if name in ("_softmax", "_log_softmax"):
@@ -197,8 +204,10 @@ def _out_bdims(name, args, ins, in_b, outs, batch):
         if bw is not None:
             return [bw if bw == r - 1 else 0], False
         return [None], False
-    if name == "convolution":
-        return [b0], False
+    if name in ("convolution", "max_pool2d_with_indices",
+                "max_pool2d_with_indices_backward"):
+        # NCHW: the batch stays on dim 0, in and out
+        return [b0 if b0 == 0 else None] * n, False
     if name in _REDUCERS:
         if b0 is None:
             return [None] * n, False
@@ -250,10 +259,11 @@ class _Exporter:
                 continue
             if fx.target is operator.getitem:
                 parent, i = fx.args
-                self.src[fx] = self.src.get(parent)
+                src, psum = self.src.get(parent), self.psum.get(parent, False)
+                self.src[fx] = src[i] if isinstance(src, list) else src
                 self.bdim[fx] = self.bdim.get(parent, [None])[i] \
                     if isinstance(self.bdim.get(parent), list) else None
-                self.psum[fx] = self.psum.get(parent, False)
+                self.psum[fx] = psum[i] if isinstance(psum, list) else psum
                 continue
             outs = _tensors(fx.meta.get("val"))
             if not outs:
@@ -265,6 +275,9 @@ class _Exporter:
             ins = [a.meta["val"] for a in in_nodes]
             in_b = [self.bdim.get(a) if not isinstance(self.bdim.get(a), list) else None
                     for a in in_nodes]
+            if name == "convolution_backward":
+                self.conv_backward(fx, in_nodes, ins, in_b)
+                continue
             out_b, contracted = _out_bdims(name, fx.args, ins, in_b, outs, self.batch_size)
             any_in = any(b is not None for b in in_b)
             out_batched = any(b is not None for b in out_b)
@@ -297,6 +310,45 @@ class _Exporter:
             self.src[fx] = node.op_id
             self.bdim[fx] = out_b if isinstance(fx.meta.get("val"), (list, tuple)) else out_b[0]
             self.psum[fx] = split == Split.SUM
+
+    def conv_backward(self, fx, in_nodes, ins, in_b):
+        """``convolution_backward(dy, x, w, ..., output_mask)``: one node a
+        gradient that ``output_mask`` asks for, in its output position. The
+        input's and the weight's each cost the forward convolution's FLOPs
+        (``2 * dy.numel() * prod(w.shape[1:])``); the bias's is a reduction
+        of ``dy``. The input's keeps ``dy``'s batch dim (CONCAT); the
+        weight's and the bias's sum over the batch (SUM, batch dim None)."""
+        dy, w = ins[0], ins[2]
+        b_dy = in_b[0]
+        batched = any(b is not None for b in in_b[:3])
+        conv = 2.0 * dy.numel() * math.prod(w.shape[1:])
+        specs = (("input", conv, (0, 2), b_dy is not None, Split.CONCAT if b_dy is not None
+                  else Split.OTHER),
+                 ("weight", conv, (0, 1), False, Split.SUM if batched else Split.OTHER),
+                 ("bias", float(dy.numel()), (0,), False,
+                  Split.SUM if b_dy is not None else Split.OTHER))
+        vals = fx.meta["val"]
+        srcs, bdims, psums = [], [], []
+        for (which, flops, deps, keeps, split), mask, val in zip(specs, fx.args[10], vals):
+            if not mask or val is None:
+                srcs.append(None)
+                bdims.append(None)
+                psums.append(False)
+                continue
+            node = self.new_node(
+                name=f"convolution_backward_{which}_{self.next_id}",
+                op_type="convolution_backward", flops=flops, bytes_out=_nbytes(val),
+                split=split, batch_dim=keeps)
+            self.preds[node.op_id] = []
+            for j in deps:
+                s = self.src.get(in_nodes[j])
+                if s is not None:
+                    self.g.add_edge(s, node.op_id, _nbytes(ins[j]))
+                    self.preds[node.op_id].append(s)
+            srcs.append(node.op_id)
+            bdims.append(b_dy if keeps else None)
+            psums.append(split == Split.SUM)
+        self.src[fx], self.bdim[fx], self.psum[fx] = srcs, bdims, psums
 
     def producer(self, fx) -> int | None:
         """The op that computed ``fx``'s value, looking through the casts

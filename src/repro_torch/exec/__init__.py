@@ -1,12 +1,14 @@
 """Pipeline execution of the port: the stage partitioner (``stages``), the
 four microbatch schedules with their timeline simulator (``schedule``), the
-model adapter that cuts an LM into stage functions (``model_split``) and the
+model adapter that cuts an LM into stage functions (``model_split``), the
 eager and compiled engines that run a ``StagePlan`` as a train step
-(``engine``)."""
+(``engine``) and the replay executor that emits a plan's step telemetry from
+the cost model (``replay``)."""
 from repro_torch.exec.engine import (
     CompiledPipelineRunner, PipelineRunner, StepStats, split_microbatches,
     stack_microbatches)
 from repro_torch.exec.model_split import split_model
+from repro_torch.exec.replay import execute_pipeline
 from repro_torch.exec.schedule import (
     SCHEDULES, Timeline, flatten_schedule, gpipe_schedule,
     interleaved_1f1b_schedule, make_schedule, max_feasible_micro,
@@ -20,6 +22,7 @@ from repro_torch.exec.stages import (
 __all__ = [
     "CompiledPipelineRunner", "PipelineRunner", "StepStats", "split_microbatches", "stack_microbatches",
     "split_model",
+    "execute_pipeline",
     "SCHEDULES", "Timeline", "flatten_schedule", "gpipe_schedule",
     "interleaved_1f1b_schedule", "make_schedule", "max_feasible_micro",
     "one_f_one_b_schedule", "peak_stash", "schedule_step_cost",

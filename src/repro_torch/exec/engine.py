@@ -146,16 +146,14 @@ class PipelineRunner:
     of physical stage ``s`` (more than one: per-stage data parallelism, with
     the gradient sync of ``plan.stages[s].sync``). ``mb_keys[u]`` names the
     microbatch entries virtual stage ``u`` consumes (default: all).
-    ``spool`` (live observability) is not ported yet.
+    ``spool`` (an ``obs.collector.SpoolWriter``) streams every step's events
+    into the live-observability spool, and so turns event recording on.
     """
 
     def __init__(self, stage_fns, plan, device_sets, *, schedule: str = "1f1b",
                  n_micro: int | None = None, n_chunks: int = 1, mb_keys=None,
                  tied_ref=None, store=None, graph_fp: str = "", topo_fp: str = "",
                  meta: dict | None = None, spool=None):
-        if spool is not None:
-            raise NotImplementedError(
-                "spool= is not ported yet (ROADMAP queue 1, item 6, observability)")
         self.fns = list(stage_fns)
         self.plan = plan
         self.S = len(device_sets)
@@ -175,6 +173,10 @@ class PipelineRunner:
         self.store = store
         self.graph_fp, self.topo_fp = graph_fp, topo_fp
         self.meta = dict(meta or {})
+        # live-observability spool (obs.collector.SpoolWriter): recorded
+        # events go to it once a step, after the step's own timing
+        self.spool = spool
+        self._spool_tracks_done = False
         self.syncs = [plan.stages[s].sync if s < len(plan.stages) else "allreduce"
                       for s in range(self.S)]
         order = make_schedule(schedule, self.S, self.n_micro, n_chunks=self.V)
@@ -326,6 +328,7 @@ class PipelineRunner:
         embedding).
         """
         t_start = time.perf_counter()
+        record = record or self.spool is not None   # spooling needs events
         mbs = split_microbatches(batch, self.n_micro)
         S, U, M = self.S, self.U, self.n_micro
         rows = next(iter(mbs[0].values())).shape[0]
@@ -429,6 +432,8 @@ class PipelineRunner:
         self.last_stats = stats
         if self.store is not None:
             self._record_telemetry(stats)
+        if self.spool is not None:
+            self._spool_events(stats, t_start)
         return grads, stats
 
     # -------------------------------------------------------- telemetry
@@ -466,6 +471,30 @@ class PipelineRunner:
                       n_stages=self.S, n_chunks=self.V, n_micro=self.n_micro,
                       loss=stats.loss, peak_stash=stats.peak_stash, events=ev_meta))
         self.store.append(rec)
+
+    def _spool_events(self, stats: StepStats, t_start: float):
+        """Stream this step's events to the cross-process spool: one batched
+        append (one lock, one write) a step, each event's time re-based from
+        step-relative to this process's ``perf_counter`` clock, so that the
+        collector's anchor alignment applies unchanged. It reads only the
+        host-side ``StepStats``, so it adds no device synchronization."""
+        from repro_torch.obs.trace import KIND_LABEL, event_name
+        recs = []
+        if not self._spool_tracks_done:
+            self._spool_tracks_done = True
+            recs += [{"type": "track", "tid": s, "name": f"stage {s}"}
+                     for s in range(self.S)]
+        for e in stats.events:
+            kind, s, m, dur, chunk = e[:5]
+            start = float(e[5]) if len(e) > 5 else 0.0
+            recs.append({
+                "type": "span", "name": event_name(kind, s, m, chunk),
+                "cat": "pipeline", "tid": int(s),
+                "t0": t_start + start, "t1": t_start + start + float(dur),
+                "args": {"kind": KIND_LABEL.get(kind, kind), "stage": s,
+                         "mb": m, "chunk": chunk,
+                         "schedule": self.schedule}})
+        self.spool.emit_many(recs)
 
 
 class _Graph:
@@ -663,6 +692,7 @@ class CompiledPipelineRunner(PipelineRunner):
         """One pipelined train step through the rolled loops. Returns
         ``(grads_list, StepStats)`` under the eager engine's contract."""
         t_start = time.perf_counter()
+        record = record or self.spool is not None   # spooling needs events
         S, U, M = self.S, self.U, self.n_micro
         stacked = stack_microbatches(batch, M)
         rows = next(iter(stacked.values())).shape[1]
@@ -730,4 +760,6 @@ class CompiledPipelineRunner(PipelineRunner):
         self.last_stats = stats
         if self.store is not None:
             self._record_telemetry(stats)
+        if self.spool is not None:
+            self._spool_events(stats, t_start)
         return grads, stats

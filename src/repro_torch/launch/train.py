@@ -12,14 +12,18 @@ lowered plan. A plan that pipelines runs through a pipeline engine
 ``--engine scan`` runs each stage's loops as CUDA graphs) where the run has
 at least as many devices as stages, and otherwise falls back, with a
 warning, to single-mesh data parallelism over the host mesh, which is also
-the path without ``--tag-search``. ``repro``'s tracing flags are refused,
-naming the ROADMAP item (queue 1) that brings them.
+the path without ``--tag-search``. ``--trace-dir`` writes Chrome traces of the
+planner's spans and of the last pipelined step, ``--spool-dir`` streams step
+and stage events into the live-observability spool under ``--run-id``, and
+``--xla-profile`` (``repro``'s flag name) runs one post-warm-up step under
+``torch.profiler``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -32,16 +36,6 @@ from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import init_params
 from repro_torch.optim.adam import AdamW
-
-OBS_ITEM = "1.6, observability"
-# flag -> (argparse keywords, the ROADMAP item, queue 1, that brings it)
-UNPORTED_FLAGS = {
-    "--trace-dir": ({}, OBS_ITEM),
-    "--spool-dir": ({}, OBS_ITEM),
-    "--run-id": ({}, OBS_ITEM),
-    "--xla-profile": ({"action": "store_true"}, OBS_ITEM),
-}
-
 
 def resolve_pipeline(plan, mode: str, devices=None):
     """Decide whether a lowered TAG plan's PIPE stages can really run on
@@ -76,6 +70,54 @@ def resolve_pipeline(plan, mode: str, devices=None):
 
 def _stage_key(s: int) -> str:
     return f"stage{s}"
+
+
+def _export_spans(args):
+    """Write the session's planner/search spans as a Chrome trace
+    (``--trace-dir``); no-op when tracing is off or nothing was recorded."""
+    if not getattr(args, "trace_dir", ""):
+        return
+    from repro_torch.obs import chrome_trace, write_chrome_trace
+    from repro_torch.obs.spans import get_tracer
+    tracer = get_tracer()
+    if not tracer.spans():
+        return
+    path = write_chrome_trace(
+        os.path.join(args.trace_dir, "trace_spans.json"),
+        chrome_trace(tracer.to_chrome(process_name="train"),
+                     arch=args.arch, kind="spans"))
+    print(f"trace: wrote {path} ({len(tracer.spans())} spans)", flush=True)
+
+
+def _run_id(args) -> str:
+    """One run id for the whole job: groups the spool shard under
+    /traces/<run_id> and the telemetry records under /runs/<run_id> on the
+    health analyzer's side."""
+    return getattr(args, "run_id", "") or f"train-{args.arch}"
+
+
+def _make_spool(args):
+    """``--spool-dir``: a ``SpoolWriter`` shard for this training process,
+    feeding the cross-process trace collector (``serve-metrics --spool-dir``
+    on the other end). None when unset; tests drive these entry points with
+    hand-built Namespaces."""
+    spool_dir = getattr(args, "spool_dir", "")
+    if not spool_dir:
+        return None
+    from repro_torch.obs.collector import SpoolWriter
+    return SpoolWriter(spool_dir, run_id=_run_id(args), name="train",
+                       meta={"arch": args.arch})
+
+
+def _drain_tracer_to_spool(spool):
+    """Ship this process's recorded planner/search spans (if any) into its
+    spool shard beside the step and stage events."""
+    if spool is None:
+        return
+    from repro_torch.obs.spans import get_tracer
+    tracer = get_tracer()
+    if tracer.spans():
+        spool.emit_tracer(tracer)
 
 
 @dataclasses.dataclass
@@ -148,9 +190,9 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
         from repro_torch.runtime.telemetry import MeasurementStore
         store = MeasurementStore(args.telemetry_dir)
     kw = dict(schedule=schedule, n_micro=n_micro, n_chunks=n_chunks, mb_keys=mb_keys,
-              tied_ref=tied, store=store,
+              tied_ref=tied, store=store, spool=_make_spool(args),
               meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
-                    "launcher": "train", "engine": engine, "run_id": f"train-{args.arch}"})
+                    "launcher": "train", "engine": engine, "run_id": _run_id(args)})
     if engine == "scan":
         unroll = max(1, getattr(args, "scan_unroll", 1))
         runner = CompiledPipelineRunner(fns, stage_plan, device_sets, unroll=unroll, **kw)
@@ -189,17 +231,21 @@ def run_pipeline(args, cfg, stage_plan, devices=None):
     eager by default, and ``args.scan_unroll``) on
     ``devices`` (default: every local device; a list may repeat one, such as
     ``[cuda:0] * 2``). ``args`` carries the launcher's fields; tests pass a
-    hand-built Namespace. Returns the losses."""
+    hand-built Namespace. ``args.trace_dir`` writes the last step's executed
+    events as ``trace_executed.json``; ``args.spool_dir`` spools every step's
+    events (``_make_spool``). Returns the losses."""
     run = build_pipeline(args, cfg, stage_plan, devices)
     schedule, n_chunks, n_micro = run.schedule, run.n_chunks, run.n_micro
     params_list, opt_state_list = run.params_list, run.opt_state_list
     start_step = run.start_step
+    trace_dir = getattr(args, "trace_dir", None)
+    record_steps = run.runner.store is not None or bool(trace_dir)
     losses = []
     t_start = time.time()
     for step in range(start_step, args.steps):
         batch = run.dataset.device_batch(step, "cpu")
         params_list, opt_state_list, metrics = run.step_fn(
-            params_list, opt_state_list, step, batch, record=run.runner.store is not None)
+            params_list, opt_state_list, step, batch, record=record_steps)
         losses.append(metrics["loss"])
         if step % args.log_every == 0:
             chunks = f"x{n_chunks}v" if n_chunks > 1 else ""
@@ -219,6 +265,17 @@ def run_pipeline(args, cfg, stage_plan, devices=None):
     print(f"done: {n} pipelined steps in {dt:.1f}s ({dt / n * 1e3:.0f} ms/step, "
           f"schedule={schedule}, stages={stage_plan.n_stages}, n_micro={n_micro}){tail}",
           flush=True)
+    last = run.runner.last_stats
+    if trace_dir and last is not None:
+        from repro_torch.obs import chrome_trace, executed_trace_events, write_chrome_trace
+        events = executed_trace_events(last, pid=0, process_name=f"executed [{schedule}]",
+                                       n_stages=stage_plan.n_stages)
+        path = write_chrome_trace(
+            os.path.join(trace_dir, "trace_executed.json"),
+            chrome_trace(events, arch=args.arch, schedule=schedule, n_micro=n_micro,
+                         n_stages=stage_plan.n_stages))
+        print(f"trace: wrote {path} ({len(last.events)} events)", flush=True)
+    _drain_tracer_to_spool(run.runner.spool)
     return losses
 
 
@@ -245,8 +302,8 @@ def plan_deployment(arch: str, device, n_micro: int = 4):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The launcher's flags, as ``repro.launch.train`` parses them; a flag
-    the port does not run yet raises, naming its ROADMAP item."""
+    """The launcher's flags, as ``repro.launch.train`` parses them, plus
+    ``--device``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=list(ARCH_IDS), default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true", help="use the reduced config (CPU-sized)")
@@ -280,19 +337,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-micro", type=int, default=4, help="microbatches per pipelined step")
     ap.add_argument("--n-chunks", type=int, default=2,
                     help="virtual model chunks per stage for the interleaved schedule")
-    for flag, (kw, _) in UNPORTED_FLAGS.items():
-        ap.add_argument(flag, default=None, help=argparse.SUPPRESS, **kw)
-    args = ap.parse_args(argv)
-    for flag, (_, item) in UNPORTED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) not in (None, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP queue 1, item {item})")
-    return args
+    ap.add_argument("--trace-dir", default="",
+                    help="export Chrome traces here: the executed pipeline timeline of the "
+                         "last step plus the planner/search span timeline")
+    ap.add_argument("--spool-dir", default="",
+                    help="append this process's step/stage events and spans to a shard in "
+                         "this live-observability spool directory (merged across processes "
+                         "by the trace collector, served by the service CLI's "
+                         "serve-metrics)")
+    ap.add_argument("--run-id", default="",
+                    help="run id grouping this job's spool shard with other processes' "
+                         "shards in /traces/<run_id> and its telemetry under "
+                         "/runs/<run_id> (default: train-<arch>)")
+    ap.add_argument("--xla-profile", action="store_true",
+                    help="run one post-warm-up step under torch.profiler (CPU and CUDA "
+                         "activities), write its Chrome trace and record its "
+                         "per-collective samples into the telemetry log; the flag keeps "
+                         "repro's name so that one command line runs on both")
+    return ap.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if args.trace_dir:
+        from repro_torch.obs.spans import Tracer, set_tracer
+        set_tracer(Tracer(enabled=True))
     cfg = get_reduced(args.arch) if args.smoke else get_config(args.arch)
     mesh = mesh_mod.make_host_mesh(None if device.type == "cuda" else [device])
     rules = steps_mod.baseline_rules(mesh)
@@ -309,7 +379,9 @@ def main(argv=None):
         devices = list(mesh.devices.flat)
         stage_plan = resolve_pipeline(plan, args.pipeline, devices)
         if stage_plan is not None:
-            return run_pipeline(args, cfg, stage_plan, devices)
+            losses = run_pipeline(args, cfg, stage_plan, devices)
+            _export_spans(args)
+            return losses
     opt = AdamW(lr=args.lr)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     opt_state = opt.init(params)
@@ -329,23 +401,44 @@ def main(argv=None):
                           d_model=cfg.d_model)
     options = steps_mod.StepOptions(loss_chunk=args.loss_chunk)
     step_fn = steps_mod.make_train_step(cfg, opt, rules, options)
+    raw_step_fn = step_fn
     timer = None
     if args.telemetry_dir:
         from repro_torch.runtime.telemetry import MeasurementStore, StepTimer
         timer = StepTimer(MeasurementStore(args.telemetry_dir),
                           meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
-                                "launcher": "train", "run_id": f"train-{args.arch}",
+                                "launcher": "train", "run_id": _run_id(args),
                                 "device": str(device)})
         step_fn = steps_mod.instrument_step(step_fn, timer)
 
     print(f"training {cfg.name} ({cfg.num_layers} layers, d_model {cfg.d_model}) on {device}, "
           f"data parallel over the host mesh {mesh.shape}", flush=True)
+    # profile one post-warm-up step (the first pays the allocator's warm-up)
+    profile_at = min(start_step + 1, args.steps - 1) if args.xla_profile else -1
+    spool = _make_spool(args)
     losses = []
     t_start = time.time()
     for step in range(start_step, args.steps):
+        t_step = time.perf_counter()
         batch = ds.device_batch(step, device)
-        params, opt_state, metrics = step_fn(params, opt_state, step, batch)
+        if step == profile_at:
+            from repro_torch.obs.torch_profiler import profile_step
+            log_dir = os.path.join(args.trace_dir or args.telemetry_dir or ".", "torch_profile")
+            t0 = time.perf_counter()
+            out, samples, pmeta = profile_step(raw_step_fn, params, opt_state, step, batch,
+                                               log_dir=log_dir)
+            wall = time.perf_counter() - t0
+            params, opt_state, metrics = out
+            print(f"xla-profile: {json.dumps(pmeta)} ({len(samples)} collective samples)",
+                  flush=True)
+            if timer is not None:
+                timer.record(wall, collectives=samples)
+        else:
+            params, opt_state, metrics = step_fn(params, opt_state, step, batch)
         loss = float(metrics["loss"])
+        if spool is not None:
+            spool.emit_span(f"step {step}", t_step, time.perf_counter(), tid=0, cat="train",
+                            args={"step": step, "loss": loss})
         losses.append(loss)
         if step % args.log_every == 0:
             print(f"step {step:5d} loss={loss:.4f} ce={float(metrics['ce']):.4f} "
@@ -358,6 +451,8 @@ def main(argv=None):
     print(f"done: {n} steps in {dt:.1f}s ({dt / n * 1e3:.0f} ms/step){tail}", flush=True)
     if timer is not None:
         print(f"telemetry[{args.telemetry_dir}]: {json.dumps(timer.summary())}", flush=True)
+    _drain_tracer_to_spool(spool)
+    _export_spans(args)
     return losses
 
 

@@ -417,10 +417,57 @@ class PlannerService:
         return out
 
     # ------------------------------------------------- served observability
-    def serve_metrics(self, **kw):
-        """The live observability plane (``repro``'s ``ObsServer`` on
-        /metrics, /plans, /runs, /alerts, /traces) needs ``obs.server``,
-        ``obs.collector`` and ``obs.health``, which the port does not have
-        yet."""
-        raise NotImplementedError(
-            "serve_metrics is not ported yet (ROADMAP queue 1, item 6)")
+    def serve_metrics(self, *, host: str = "127.0.0.1", port: int = 0,
+                      spool_dir: str | None = None,
+                      run_id: str = "planner", recalibrate: bool = True,
+                      interval_s: float = 5.0, iterations: int = 20,
+                      spool_max_age_s: float | None = None,
+                      spool_max_bytes: int | None = None,
+                      slo_s: float | None = None,
+                      alert_rules=None, health: bool = True,
+                      start: bool = True):
+        """Embed the live observability plane in this service.
+
+        Returns a started ``repro_torch.obs.server.ObsServer`` exposing this
+        service's registry on /metrics, per-plan verify diagnostics on
+        /plans, run health on /runs + /alerts, and — when ``spool_dir``
+        is given — the cross-process trace collector on
+        /traces/<run_id>, with this process's planner spans drained into
+        its own spool shard on every scrape. ``recalibrate=True`` also
+        attaches a ``RecalibrationLoop`` (its lifecycle follows the
+        server's); register workloads for unattended replanning via
+        ``server.recalib.watch(gg, topo)``.
+
+        ``health=True`` attaches a ``RunHealthAnalyzer`` draining the
+        service's telemetry dir with its OWN cursor (it never steals
+        the recalibration loop's records); ``slo_s``/``alert_rules``
+        arm step-time SLO burn-rate alerting, and the recalibration
+        loop replans drifted workloads in the analyzer's severity
+        order. Register predicted schedules via
+        ``server.health.watch(run_id, timeline=...)``.
+        """
+        from repro_torch.obs.collector import SpoolWriter, TraceCollector
+        from repro_torch.obs.server import ObsServer
+        spool = collector = loop = analyzer = None
+        if spool_dir:
+            spool = SpoolWriter(spool_dir, run_id=run_id, name="planner")
+            collector = TraceCollector(spool_dir)
+        if health:
+            from repro_torch.obs.health import RunHealthAnalyzer
+            from repro_torch.runtime.telemetry import MeasurementStore
+            hstore = MeasurementStore(self._telemetry_dir) \
+                if self._telemetry_dir else None
+            analyzer = RunHealthAnalyzer(
+                hstore, registry=self.metrics, slo_s=slo_s,
+                alert_rules=alert_rules)
+        if recalibrate:
+            from repro_torch.runtime.feedback import RecalibrationLoop
+            loop = RecalibrationLoop(self, interval_s=interval_s,
+                                     iterations=iterations,
+                                     health=analyzer)
+        server = ObsServer(registry=self.metrics, service=self,
+                           collector=collector, spool=spool, recalib=loop,
+                           health=analyzer, host=host, port=port,
+                           spool_max_age_s=spool_max_age_s,
+                           spool_max_bytes=spool_max_bytes)
+        return server.start() if start else server

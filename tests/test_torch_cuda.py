@@ -625,6 +625,72 @@ def test_serve_plan_topo_observe_smoke_on_card(tmp_path, capsys):
 
 
 @pytest.mark.gpu
+def test_profiled_train_step_runs_once_on_card(tmp_path, capsys):
+    """``train --xla-profile`` on the card: step 1 runs once under
+    torch.profiler, whose trace holds CUDA kernels, and the losses equal an
+    unprofiled run's from the same seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch import steps as tsteps
+    calls = []
+    make = tsteps.make_train_step
+
+    def counting(*a, **kw):
+        step = make(*a, **kw)
+
+        def run(*args, **kwargs):
+            calls.append(1)
+            return step(*args, **kwargs)
+        return run
+
+    base = ["--smoke", "--steps", "3", "--batch", "2", "--seq", "32", "--seed", "3"]
+    ref = ttrain.main(base)
+    tsteps.make_train_step = counting
+    try:
+        got = ttrain.main([*base, "--xla-profile", "--trace-dir", str(tmp_path)])
+    finally:
+        tsteps.make_train_step = make
+    out = capsys.readouterr().out
+    line = next(ln for ln in out.splitlines() if ln.startswith("xla-profile: "))
+    meta = json.loads(line[len("xla-profile: "):line.index(" (")])
+    assert calls == [1, 1, 1] and meta["profiler"] == "ok"
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-3)
+    with open(meta["trace_file"]) as f:
+        cats = {e.get("cat") for e in json.load(f)["traceEvents"]}
+    assert "kernel" in cats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_dev", [2, 4])
+@pytest.mark.parametrize("sync", ["allreduce", "ps", "sfb"])
+def test_dp_mlp_loss_on_card_matches_one_device(sync, n_dev):
+    """``dp_mlp_loss`` over ``[cuda:0] * n_dev``, f32, TF32 off: each leaf's
+    gradient within 1e-4 of its max of the same MLP on one device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.sfb_dense import dp_mlp_loss
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    widths = (256, 512, 64)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ps = [(torch.randn(a, b, device=dev, generator=gen) * 0.05).requires_grad_()
+          for a, b in zip(widths[:-1], widths[1:])]
+    x = torch.randn(16, widths[0], device=dev, generator=gen)
+    y = torch.randn(16, widths[-1], device=dev, generator=gen)
+    loss = dp_mlp_loss(make_mesh((n_dev,), ("data",), [dev] * n_dev), "data", sync, widths)
+    got = torch.autograd.grad(loss(ps, x, y), ps)
+    h = x
+    for i, w in enumerate(ps):
+        h = h @ w if i == len(ps) - 1 else torch.relu(h @ w)
+    one = torch.autograd.grad(((h - y) ** 2).mean(), ps)
+    for g, r in zip(got, one):
+        assert float((g - r).abs().max()) <= 1e-4 * max(1.0, float(r.abs().max()))
+
+
+@pytest.mark.gpu
 def test_scan_engine_capture_refuses_a_host_copy():
     """A stage that copies from the host inside a loop cannot be captured:
     the step raises, and nothing falls back to the uncaptured loop. (Last in

@@ -58,6 +58,9 @@ SPEC_ARCHS = ("qwen2-1.5b", "mamba2-130m", "yi-6b", "deepseek-7b", "minitron-4b"
               "olmoe-1b-7b", "kimi-k2-1t-a32b", "jamba-v0.1-52b", "musicgen-large",
               "internvl2-26b")
 MESHES = {"data4": ((4,), ("data",)), "data2x2": ((2, 2), ("data", "model"))}
+# the SFB dense layer's MLP (parallel/sfb_dense.py::dp_mlp_loss): widths,
+# rows (split over the 4 devices), gradient tolerance against repro's
+MLP_WIDTHS, MLP_ROWS, MLP_TOL = (16, 32, 8), 8, 1e-5
 SHAPES = [("train", 16, 8), ("train", 16, 6), ("decode", 16, 8), ("decode", 16, 6),
           ("decode", 12, 3)]
 LOGICAL = [(("batch", "seq", "embed"), (8, 16, 64)), (("batch", "seq", "embed"), (6, 16, 64)),
@@ -98,6 +101,16 @@ def _unflatten(flat: dict) -> dict:
     return tree
 
 
+def _mlp_inputs():
+    """The MLP's weights, inputs and targets (numpy, f32)."""
+    rng = np.random.default_rng(0)
+    params = [(rng.standard_normal((a, b)) * 0.1).astype(np.float32)
+              for a, b in zip(MLP_WIDTHS[:-1], MLP_WIDTHS[1:])]
+    x = rng.standard_normal((MLP_ROWS, MLP_WIDTHS[0])).astype(np.float32)
+    y = rng.standard_normal((MLP_ROWS, MLP_WIDTHS[-1])).astype(np.float32)
+    return params, x, y
+
+
 def _canon(spec) -> list:
     """A spec's entries as JSON: a tuple of mesh axes becomes a list."""
     return [list(e) if isinstance(e, tuple) else e for e in spec]
@@ -117,7 +130,8 @@ from repro.parallel.sharding import axis_rules, logical_spec
 from repro.configs import get_reduced
 sys.path.insert(0, {test_dir!r})
 from test_torch_dp import (
-    BATCHES, LOGICAL, LR, MESHES, SEQ, SHAPES, SPEC_ARCHS, STEPS, _batch, _canon, _flatten)
+    BATCHES, LOGICAL, LR, MESHES, MLP_WIDTHS, SEQ, SHAPES, SPEC_ARCHS, STEPS, _batch, _canon,
+    _flatten, _mlp_inputs)
 
 assert len(jax.devices()) == 4, jax.devices()
 out, what = sys.argv[1], sys.argv[2]
@@ -143,6 +157,17 @@ if what == "specs":
                     res[f"{{mname}}/{{arch}}/cache/{{seq}}/{{b}}"] = _flatten(cs)
     with open(out, "w") as f:
         json.dump(res, f)
+elif what == "mlp":
+    from repro.parallel.sfb_dense import dp_mlp_loss
+    params, x, y = _mlp_inputs()
+    mesh = jmesh.make_mesh((4,), ("data",))
+    res = {{}}
+    for sync in ("allreduce", "ps", "sfb"):
+        g = jax.jit(jax.grad(dp_mlp_loss(mesh, "data", sync, MLP_WIDTHS)))(
+            [jnp.asarray(p) for p in params], jnp.asarray(x), jnp.asarray(y))
+        for i, gi in enumerate(g):
+            res[f"{{sync}}/{{i}}"] = np.asarray(gi)
+    np.savez(out, **res)
 else:
     arch = what
     kw = {{"ssm_chunk": 32}} if arch == "mamba2-130m" else {{}}
@@ -170,14 +195,16 @@ print("JAX_DP_OK")
 
 @pytest.fixture(scope="module")
 def jax_dp(tmp_path_factory):
-    """``repro``'s specs and 4-step trajectories: one subprocess for the
-    specs and one an arch, the three started together."""
+    """``repro``'s specs, 4-step trajectories and SFB-MLP gradients: one
+    subprocess for the specs, one for the MLP and one an arch, all started
+    together."""
     tmp = tmp_path_factory.mktemp("jaxdp")
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     code = textwrap.dedent(_JAX_SCRIPT.format(
         test_dir=os.path.dirname(os.path.abspath(__file__))))
-    jobs = {"specs": str(tmp / "specs.json"), **{a: str(tmp / f"{a}.npz") for a in ARCHS}}
+    jobs = {"specs": str(tmp / "specs.json"), "mlp": str(tmp / "mlp.npz"),
+            **{a: str(tmp / f"{a}.npz") for a in ARCHS}}
     procs = {what: subprocess.Popen([sys.executable, "-c", code, out, what], env=env, text=True,
                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for what, out in jobs.items()}
@@ -375,3 +402,24 @@ def test_no_device_list_needs_a_card(tmp_path):
         run_pipeline(args, _cfg("qwen2-1.5b"), plan(1))
     assert not os.listdir(tmp_path)
     assert tmesh.make_host_mesh([CPU] * 3).shape == {"data": 3}
+
+
+@pytest.mark.parametrize("sync", ["allreduce", "ps", "sfb"])
+def test_dp_mlp_loss_grads_match_repro(jax_dp, sync):
+    """``dp_mlp_loss`` over ``[cpu] * 4`` on the ``"data"`` axis: the
+    gradients of ``repro``'s jitted ``dp_mlp_loss`` on 4 host devices, and
+    of the same MLP on one device, 1e-5; ``w`` gets the sync's sum once (a
+    second sum through the shards' copies of ``w`` would double it)."""
+    from repro_torch.parallel.sfb_dense import dp_mlp_loss
+    params, x, y = _mlp_inputs()
+    ps = [torch.tensor(p, requires_grad=True) for p in params]
+    mesh = tmesh.make_mesh((4,), ("data",), [CPU] * 4)
+    loss = dp_mlp_loss(mesh, "data", sync, MLP_WIDTHS)(ps, torch.tensor(x), torch.tensor(y))
+    got = torch.autograd.grad(loss, ps)
+    h = torch.tensor(x)
+    for i, w in enumerate(ps):
+        h = h @ w if i == len(ps) - 1 else torch.relu(h @ w)
+    one = torch.autograd.grad(((h - torch.tensor(y)) ** 2).mean(), ps)
+    for i, (g, ref) in enumerate(zip(got, one)):
+        np.testing.assert_allclose(g.numpy(), jax_dp["mlp"][f"{sync}/{i}"], rtol=0, atol=MLP_TOL)
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=0, atol=MLP_TOL)

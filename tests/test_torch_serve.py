@@ -142,6 +142,9 @@ def test_port_imports_neither_jax_nor_repro():
             "service/planner.py", "service/cli.py", "runtime/__init__.py",
             "runtime/calibration.py", "runtime/drift.py", "runtime/executor.py",
             "runtime/feedback.py", "core/hetgnn.py", "core/trainer.py"} <= scanned
+    # observability, the replay executor and the paper zoo
+    assert {"obs/trace.py", "obs/collector.py", "obs/health.py", "obs/alerts.py",
+            "obs/server.py", "obs/torch_profiler.py", "exec/replay.py", "core/zoo.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -419,6 +419,11 @@ def test_bigger_budget_not_shadowed_by_small_cached_plan(pkg):
     assert again.source == "hit" and again.iterations_run == 0
 
 
-def test_serve_metrics_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.Service().serve_metrics(port=0)
+def test_serve_metrics_names_its_roadmap_item(tmp_path):
+    """ROADMAP queue 1, item 6 is done: ``serve_metrics`` builds ``repro``'s
+    server (unstarted here) with its collector, spool, health analyzer and
+    recalibration loop; ``tests/test_torch_live_obs.py`` serves it."""
+    server = T.Service(cache_dir=str(tmp_path)).serve_metrics(
+        port=0, spool_dir=str(tmp_path / "spool"), start=False)
+    assert type(server).__module__ == "repro_torch.obs.server"
+    assert None not in (server.collector, server.spool, server.health, server.recalib)

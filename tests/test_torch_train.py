@@ -21,6 +21,7 @@ Mamba runs at sequence 64 in chunks of 32: at the model's initial step sizes
 decay stays under about 88 (see test_torch_ssm.py).
 """
 import functools
+import json
 import shutil
 
 import numpy as np
@@ -324,18 +325,47 @@ def test_train_cli_on_cpu_learns_and_records_telemetry(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--run-id", "--spool-dir", "--trace-dir", "--xla-profile"])
-def test_train_cli_refuses_unported_flags(flag):
-    """The flags of ``repro``'s launcher that the port does not run yet are
-    refused, naming the ROADMAP item (queue 1) that brings them:
-    observability."""
-    argv = ["--smoke", "--device", "cpu", "--steps", "0", flag]
-    if "action" not in ttrain.UNPORTED_FLAGS[flag][0]:
-        argv.append("1")
-    item = ttrain.UNPORTED_FLAGS[flag][1]
-    assert item.split(",")[0] == "1.6"
-    with pytest.raises(NotImplementedError,
-                       match=rf"{flag} .*ROADMAP queue 1, item {item.split(',')[0]}"):
-        ttrain.main(argv)
+def test_train_cli_refuses_unported_flags(flag, tmp_path, capsys):
+    """The flags of ``repro``'s launcher that earlier slices of the port
+    refused now run, as ``repro``'s do: ``--run-id`` names the run in the
+    telemetry records; ``--spool-dir`` writes an anchored shard of this
+    process with one span a step, carrying its loss; ``--trace-dir`` with
+    ``--tag-search`` (whose search records the spans) writes a valid
+    ``trace_spans.json``; ``--xla-profile`` runs step 1 once under
+    torch.profiler, whose trace it writes and parses (no collective on one
+    CPU), and the losses equal an unprofiled run's."""
+    from repro.obs.trace import validate_chrome_trace
+    from repro_torch.obs.torch_profiler import find_trace_files
+    telem = tmp_path / "telem"
+    base = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--telemetry-dir", str(telem)]
+    if flag == "--run-id":
+        ttrain.main([*base, "--run-id", "r7"])
+        assert [r.meta["run_id"] for r in JaxMeasurementStore(str(telem)).records()] == ["r7"] * 2
+    elif flag == "--spool-dir":
+        losses = ttrain.main([*base, "--spool-dir", str(tmp_path / "spool")])
+        (shard,) = (tmp_path / "spool").iterdir()
+        assert shard.name.startswith("train-qwen2-1.5b--train-")
+        recs = [json.loads(line) for line in shard.read_text().splitlines()]
+        assert recs[0]["type"] == "anchor" and recs[0]["meta"] == {"arch": "qwen2-1.5b"}
+        spans = [r for r in recs if r["type"] == "span"]
+        assert [r["name"] for r in spans] == ["step 0", "step 1"]
+        assert [r["args"]["loss"] for r in spans] == losses
+    elif flag == "--trace-dir":
+        ttrain.main([*base, "--trace-dir", str(tmp_path / "tr"), "--tag-search",
+                     "--pipeline", "off"])
+        with open(tmp_path / "tr" / "trace_spans.json") as f:
+            doc = validate_chrome_trace(json.load(f))
+        assert {"playout", "simulate"} <= {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    else:
+        ref = ttrain.main(base)
+        got = ttrain.main([*base, "--xla-profile"])
+        out = capsys.readouterr().out
+        assert got == ref
+        assert 'xla-profile: {"profiler": "ok"' in out and '"n_collectives": 0' in out
+        assert len(find_trace_files(str(telem / "torch_profile"))) == 1
+        recs = JaxMeasurementStore(str(telem)).records()
+        assert len(recs) == 4 and recs[3].collectives == [] and recs[3].wall_time > 0
 
 
 @pytest.mark.parametrize("flag,value,want", [
