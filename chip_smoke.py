@@ -130,7 +130,9 @@ Phases, each printed on lines of its own and each fatal when it fails:
            ``n_collectives`` is printed: 0 on one card, where no NCCL kernel
            runs); ``PlannerService(device="cuda").serve_metrics`` over the
            phase's spool and telemetry (the pipeline runs and ``obs-train``),
-           the hand-built pipeline's predicted timeline watched, every
+           the hand-built pipeline's predicted timeline on one GPU a group
+           (``h100_nodes(gpus_per_node=1)``: each stage runs on one card)
+           watched under each engine's run id, each engine's step ratio, every
            endpoint read, the CLI's ``metrics --url`` and ``health --url``
            against it; the CLI on the paper's zoo over ``h100`` (``plan
            --model bert_large`` cold then hit, ``verify --model resnet101``,
@@ -139,7 +141,28 @@ Phases, each printed on lines of its own and each fatal when it fails:
            trace, simplify and partition seconds; ``dp_mlp_loss`` over
            ``[cuda:0] * 2`` and ``* 4``, AR, PS and SFB, f32, against one
            device, 1e-4.
-13. kernels one JSON line with every kernel's launches, error and times.
+13. tp      tensor parallelism over ``"model"``, ``[cuda:0] * 4`` standing
+           for the positions of ``make_mesh(shape, ("data", "model"))``:
+           full-width qwen2-1.5b and mamba2-130m at 4 layers and olmoe-1b-7b
+           at 2, f32, TF32 off, batch 8 x 128, the gradient of
+           ``make_grad_step`` and one ``make_train_step`` under
+           ``baseline_rules`` on the (2, 2) and (1, 4) meshes (parameters
+           laid out by ``parallel.tensor.shard_params``; on (1, 4) qwen's 2 KV
+           heads and mamba's packed ``in_proj`` run gathered) against one
+           device under the same rules, 1e-4, every kernel count at 0 just
+           before it (none expected); then full-width, full-depth qwen2-1.5b
+           in f32 through the flash kernel over the (2, 2) mesh: the prefill,
+           every kernel count at 0 just before it and read just after (each
+           position launches the kernel on 6 of 12 query heads and 1 of 2 KV
+           heads: 2 x 2 x 28 launches), against one device's logits within
+           2e-3, and ``generate`` against one device's tokens. Each case's
+           seconds and position 0's gathered bytes.
+14. dryrun  ``launch/dryrun.py`` on ``meta`` tensors, on the host:
+           ``lower_one("olmoe-1b-7b", "decode_32k")`` on a (2, 2) mesh, every
+           roofline term and the dominant one, then qwen2-1.5b x train_4k on
+           ``make_production_mesh()`` (32 x 8), its seconds, FLOPs a device,
+           collective bytes and dominant term.
+15. kernels one JSON line with every kernel's launches, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -214,6 +237,12 @@ PIPE_RUN_BATCH, PIPE_RUN_SEQ, PIPE_RUN_MICRO, PIPE_RUN_STEPS = 8, 512, 4, 3
 DP_SEQ, DP_TOL = 128, 1e-4
 DP_CASES = ((2, 8), (4, 8), (4, 6))
 DP_SERVE_ROWS, DP_SERVE_PROMPT, DP_SERVE_GEN = (4, 3), 16, 8
+
+# tp phase: the meshes of [cuda:0] * 4 (data, model), batch rows of the
+# gradient gate (split over the data axis), the tensor-parallel prefill's
+# prompt length; the dry run's production-mesh case
+TP_MESHES, TP_ROWS, TP_PROMPT = ((2, 2), (1, 4)), 8, 512
+DRYRUN_PROD = ("qwen2-1.5b", "train_4k")
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
 OLMOE, JAMBA, MUSICGEN, INTERNVL = ("olmoe-1b-7b", "jamba-v0.1-52b", "musicgen-large",
@@ -2305,13 +2334,15 @@ def obs_train(root: Path, ref_losses: list, smi: str):
                            f"{counts}")
 
 
-def obs_serve(root: Path, watch: tuple, smi: str):
+def obs_serve(root: Path, watch: dict, smi: str):
     """Step 3: ``PlannerService(device="cuda").serve_metrics`` on 127.0.0.1,
     port 0, over the phase's spool and telemetry, after a search of the
     reduced qwen2-1.5b graph with the tracer on (its spans join the spool
-    at a scrape), the hand-built pipeline's predicted timeline watched under
-    its run id; every endpoint read, and the CLI's ``metrics --url`` and
-    ``health --url`` against the same server."""
+    at a scrape), the hand-built pipeline's predicted timeline on
+    ``h100_nodes(gpus_per_node=1)`` (each stage on one card, as the run)
+    watched under each engine's run id; every endpoint read, each engine's
+    step ratio printed, and the CLI's ``metrics --url`` and ``health --url``
+    against the same server."""
     import urllib.request
     from repro_torch.core.device import h100_nodes
     from repro_torch.exec.schedule import make_schedule, simulate_schedule
@@ -2319,8 +2350,10 @@ def obs_serve(root: Path, watch: tuple, smi: str):
         Tracer, parse_prometheus_text, set_tracer, validate_chrome_trace)
     from repro_torch.service import PlannerService
     from repro_torch.service import cli as cli_mod
-    run_id, sp, schedule = watch
-    topo = h100_nodes()
+    # each engine's run of the same hand-built plan, predicted on one GPU a
+    # group: the run puts each stage on one card
+    _, sp, schedule = watch["eager"]
+    topo = h100_nodes(gpus_per_node=1)
     tl = simulate_schedule(sp, topo, make_schedule(schedule, sp.n_stages, sp.n_micro))
     svc = PlannerService(cache_dir=str(root / "plans"), telemetry_dir=str(root / "telemetry"),
                          device="cuda")
@@ -2332,7 +2365,8 @@ def obs_serve(root: Path, watch: tuple, smi: str):
         # the SLO: the watched pipeline's predicted step, 5 % over
         server = svc.serve_metrics(host="127.0.0.1", port=0, spool_dir=str(root / "spool"),
                                    run_id=OBS_RUN_ID, slo_s=tl.makespan * 1.05)
-        server.health.watch(run_id, timeline=tl)
+        for run_id, _, _ in watch.values():
+            server.health.watch(run_id, timeline=tl)
         timed = {}
 
         def get(path):
@@ -2356,19 +2390,23 @@ def obs_serve(root: Path, watch: tuple, smi: str):
         parse_prometheus_text(prom)
         rc_h, h_out = _stdout_of(cli_mod.main, ["health", "--url", server.url], echo=False)
         cli_health = json.loads(h_out)
-        watched = health.get(run_id, {})
+        watched = {engine: health.get(run_id, {}) for engine, (run_id, _, _) in watch.items()}
+        ratios = "; ".join(f"{engine} ({watch[engine][0]}) mode {h.get('mode')}, step_ratio "
+                           f"{h.get('step_ratio')}, dominant {h.get('dominant')}"
+                           for engine, h in watched.items())
         log("obs", f"serve_metrics at {server.url}: {len(fams)} metric families; healthz "
                    f"{healthz['status']}; {plans['store_size']} plan, verify "
-                   f"{[m['verify'] for m in verify['matches']]}; runs {runs}; {run_id} mode "
-                   f"{watched.get('mode')}, step_ratio {watched.get('step_ratio')}, dominant "
-                   f"{watched.get('dominant')}; predicted step {tl.makespan * 1e3:.3f} ms; alerts "
+                   f"{[m['verify'] for m in verify['matches']]}; runs {runs}; watched on "
+                   f"{topo.name}: {ratios}; predicted step {tl.makespan * 1e3:.3f} ms; alerts "
                    f"{[(a['run_id'], a['rule'], a['state']) for a in alerts['alerts']]}; "
                    f"/traces/{OBS_RUN_ID} {sum(e['ph'] == 'X' for e in doc['traceEvents'])} "
                    f"spans from {procs}; ms a request "
                    f"{ {k: round(v, 3) for k, v in timed.items()} }; CLI metrics --url rc {rc_m}, "
                    f"health --url rc {rc_h} ({len(cli_health['health'])} runs); {smi}")
-        if OBS_RUN_ID not in runs or run_id not in runs or watched.get("mode") != "predicted":
-            raise RuntimeError(f"/runs {runs}, {run_id} health {watched}")
+        if OBS_RUN_ID not in runs or any(
+                r not in runs or watched[e].get("mode") != "predicted"
+                for e, (r, _, _) in watch.items()):
+            raise RuntimeError(f"/runs {runs}, watched health {watched}")
         if {p.split(" ")[0] for p in procs} != {"train", "planner"}:
             raise RuntimeError(f"/traces/{OBS_RUN_ID} holds the shards of {procs}")
         if rc_m or rc_h or sorted(cli_health["health"]) != sorted(runs):
@@ -2494,7 +2532,7 @@ def obs_mlp(smi: str):
         raise RuntimeError(f"dp_mlp_loss gradients off: {errs}")
 
 
-def phase_obs(root: Path, tag_losses: list, watch: tuple, smi: str):
+def phase_obs(root: Path, tag_losses: list, watch: dict, smi: str):
     """The observability plane on the card (steps 1, 3, 4 and 5; step 2 ran
     inside the pipeline phase)."""
     t0 = time.perf_counter()
@@ -2507,6 +2545,197 @@ def phase_obs(root: Path, tag_losses: list, watch: tuple, smi: str):
     obs_mlp(smi)
     log("obs", f"seconds: train {t1 - t0:.1f}, serve {t2 - t1:.1f}, CLI {t3 - t2:.1f}, "
                f"dp_mlp_loss {time.perf_counter() - t3:.1f}")
+
+
+def tp_gradients(seed: int, smi: str):
+    """The tp phase's gradient gate: ``make_grad_step`` and one
+    ``make_train_step`` under ``baseline_rules`` over
+    ``make_mesh(shape, ("data", "model"), [cuda:0] * 4)`` for each of
+    ``TP_MESHES``, the parameters laid out by ``parallel.tensor.shard_params``,
+    against one device under the same rules; full-width models at
+    ``DP_ARCH_LAYERS`` depth, f32, TF32 off. Prints each case's seconds,
+    which layers ran gathered and position 0's gathered bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adam import AdamW, leaves
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import axis_rules
+    dev = torch.device("cuda", 0)
+    opt = AdamW(lr=TRAIN_LR)
+    for arch, n_layers in DP_ARCH_LAYERS.items():
+        cfg = get_config(arch).replace(dtype="float32", num_layers=n_layers)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        rng = np.random.default_rng(seed)
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_ROWS, DP_SEQ)),
+                                    device=dev) for k in ("tokens", "labels")}
+        lines, worst = [], 0.0
+        for shape in TP_MESHES:
+            rules = steps.baseline_rules(mesh_mod.make_mesh(shape, ("data", "model"), [dev] * 4))
+            lay = tp.layout(cfg, rules)
+            with axis_rules(rules):
+                l1, m1, g1 = steps.make_grad_step(cfg, None)(params, batch)
+            for t in leaves(params):
+                t.requires_grad_(False)           # the one-device step set it in place
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with tp.collectives() as coll:
+                ln, mn, gn = steps.make_grad_step(cfg, rules)(tp.shard_params(cfg, params, rules),
+                                                              batch)
+            torch.cuda.synchronize(dev)
+            took = time.perf_counter() - t0
+            full = tp.gather_params(cfg, gn, rules)
+            g_err = max(_rel(a, b) for a, b in zip(leaves(full), leaves(g1), strict=True))
+            l_err = abs(float(ln) - float(l1)) / abs(float(l1))
+            if cfg.num_experts:
+                l_err = max(l_err, abs(float(mn["aux"]) - float(m1["aux"])) / abs(float(m1["aux"])))
+            finite = all(bool(torch.isfinite(g).all()) for g in leaves(full))
+            del g1, gn, full
+            m = {}
+            with axis_rules(rules):
+                p = _to(params, dev)
+                _, _, m["one"] = steps.make_train_step(cfg, opt, None)(p, opt.init(p), 0, batch)
+            p = _to(params, dev)
+            t1 = time.perf_counter()
+            _, _, m["tp"] = steps.make_train_step(cfg, opt, rules)(
+                tp.shard_params(cfg, p, rules), tp.shard_state(cfg, opt.init(p), rules), 0, batch)
+            torch.cuda.synchronize(dev)
+            step_s = time.perf_counter() - t1
+            del p
+            sl_err = abs(float(m["tp"]["loss"]) - float(m["one"]["loss"])) / abs(
+                float(m["one"]["loss"]))
+            gn_err = abs(float(m["tp"]["grad_norm"]) - float(m["one"]["grad_norm"])) / float(
+                m["one"]["grad_norm"])
+            worst = max(worst, g_err, l_err, sl_err, gn_err)
+            ok = finite and max(g_err, l_err, sl_err, gn_err) <= DP_TOL
+            gathered = coll.of(0).get("all-gather", (0, 0))
+            reduced = coll.of(0).get("all-reduce", (0, 0))
+            lines.append(f"mesh {shape} ({tp.describe(lay)}): loss rel {l_err:.3g}, gradients "
+                         f"max rel {g_err:.3g}; train step loss rel {sl_err:.3g}, grad_norm rel "
+                         f"{gn_err:.3g}; gradient {took:.3f} s, train step {step_s:.3f} s; "
+                         f"position 0 all-gather {gathered[0]} x, {gathered[1]} B, all-reduce "
+                         f"{reduced[0]} x, {reduced[1]} B {'ok' if ok else 'FAILED'}")
+            if not ok:
+                log("tp", f"{arch}: " + "; ".join(lines))
+                raise RuntimeError(f"{arch} tensor parallel over {shape}: beyond {DP_TOL:g} of "
+                                   f"one device")
+        log("tp", f"gradient gate, {arch} full width (d_model {cfg.d_model}), {cfg.num_layers} "
+                  f"layers, f32, TF32 off, batch {TP_ROWS} x {DP_SEQ}, make_grad_step and "
+                  f"make_train_step under baseline_rules(make_mesh(shape, ('data', 'model'), "
+                  f"[cuda:0] * 4)) against one device: " + "; ".join(lines) +
+                  f"; worst {worst:.3g} (tol {DP_TOL:g}); {smi}")
+        del params, batch
+        torch.cuda.empty_cache()
+
+
+def tp_serve(seed: int, smi: str) -> dict:
+    """The tp phase's serve gate: full-width, full-depth qwen2-1.5b in f32
+    with ``attn_impl="pallas"`` over the (2, 2) mesh: the prefill step, each
+    position launching the flash kernel on its 6 of 12 query heads and 1 of
+    2 KV heads, with every kernel count at 0 just before it and read just
+    after, against one device's prefill (logits within ``PARITY_ATOL``);
+    then ``generate`` against one device's tokens. Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import init_params
+    from repro_torch.parallel import tensor as tp
+    from repro_torch.parallel.sharding import axis_rules
+    dev = torch.device("cuda", 0)
+    cfg = get_config(QWEN).replace(dtype="float32", attn_impl="pallas")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rules = steps.baseline_rules(mesh_mod.make_mesh((2, 2), ("data", "model"), [dev] * 4))
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, TP_PROMPT)),
+                             device=dev)
+    shards = tp.shard_params(cfg, params, rules)
+    prefill = steps.make_prefill_step(cfg, rules)
+    with torch.no_grad():
+        prefill(shards, {"tokens": tokens})              # warm-up, builds the kernel
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = prefill(shards, {"tokens": tokens})
+        torch.cuda.synchronize(dev)
+        took = time.perf_counter() - t0
+        counts = read_counts()
+        with axis_rules(rules):
+            ref = steps.make_prefill_step(cfg, None)(params, {"tokens": tokens})
+    err = (logits - ref).abs().max().item()
+    want = 2 * 2 * cfg.num_layers                         # rows x positions x layers
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, DP_SERVE_PROMPT))
+    with torch.no_grad():
+        with axis_rules(rules):
+            one = generate(cfg, params, prompts, DP_SERVE_GEN)
+        stats: dict = {}
+        got = generate(cfg, params, prompts, DP_SERVE_GEN, rules, stats=stats)
+    same = got.shape == one.shape and torch.equal(got, one)
+    log("tp", f"serve {QWEN} full width, {cfg.num_layers} layers, f32, attn_impl pallas, "
+              f"mesh (2, 2) of [cuda:0] * 4 ({tp.describe(tp.layout(cfg, rules))}): prefill "
+              f"{tuple(tokens.shape)} {took:.3f} s, flash launches {counts['flash_attention']} "
+              f"(rows x positions x layers = {want}, each on {cfg.num_heads // 2} of "
+              f"{cfg.num_heads} query heads and {cfg.num_kv_heads // 2} of {cfg.num_kv_heads} KV "
+              f"heads), max |logits - one device| {err:.3g} (tol {PARITY_ATOL:g}); generate "
+              f"{SERVE_BATCH} prompts of {DP_SERVE_PROMPT}, {DP_SERVE_GEN} tokens each: "
+              f"{'equal' if same else 'DIFFERENT'} (decode "
+              f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step); {smi}")
+    if counts["flash_attention"] != want or counts["ssd_scan"] or err > PARITY_ATOL or not same:
+        raise RuntimeError(f"tp serve: launches {counts} (want {want} flash), logits error "
+                           f"{err:.3g}, tokens {'equal' if same else 'different'}")
+    del params, shards
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tp(seed: int, smi: str) -> dict:
+    """Tensor parallelism over ``"model"`` on one card, ``[cuda:0] * 4``
+    standing for the mesh's four positions: the gradient gate, then the
+    serve gate. Checks values, not speed. Returns the prefill's counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    reset_counts()
+    tp_gradients(seed, smi)
+    counts = read_counts()
+    log("tp", f"kernel launches of the gradient gate: {counts} (none expected: training runs "
+              f"the models' own routes)")
+    if any(counts.values()):
+        raise RuntimeError(f"the tp gradient path launched a forward-only kernel: {counts}")
+    t1 = time.perf_counter()
+    counts = tp_serve(seed, smi)
+    log("tp", f"seconds: gradients and train steps {t1 - t0:.1f}, serve "
+              f"{time.perf_counter() - t1:.1f}")
+    return counts
+
+
+def phase_dryrun(smi: str):
+    """The dry run on ``meta`` tensors, on the host: ``repro``'s gate case
+    (olmoe-1b-7b x decode_32k on a (2, 2) mesh), every roofline term, then
+    one (arch, shape) on ``make_production_mesh()``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    meta = [torch.device("meta")] * 4
+    for arch, shape, mesh in ((OLMOE, "decode_32k", mesh_mod.make_mesh((2, 2), ("data", "model"),
+                                                                       meta)),
+                              (DRYRUN_PROD[0], DRYRUN_PROD[1], mesh_mod.make_production_mesh())):
+        t0 = time.perf_counter()
+        r, stats = dryrun.lower_one(arch, shape, mesh, with_stats=True)
+        took = time.perf_counter() - t0
+        per = sorted(set(stats.per_position_flops.values()))
+        # a checkpointed period's recompute stops early at the last
+        # position's last saved tensor, so that position may count less
+        log("dryrun", f"{arch} x {shape} on mesh {r['mesh']} ({r['n_chips']} GPUs): "
+                      f"{took:.2f} s; FLOPs a device {r['hlo_flops']:.6e} (the traced positions' "
+                      f"{'equal' if len(per) == 1 else f'from {per[0]:.6e} to {per[-1]:.6e}'}), bytes "
+                      f"{r['hlo_bytes']:.6e}, collectives {r['collectives']['bytes']} x "
+                      f"{r['collectives']['counts']} (wire {r['collectives']['total_bytes']:.6e}"
+                      f" B), temp {r['memory']['temp_bytes']} B; roofline "
+                      f"{ {k: float(f'{v:.6g}') for k, v in r['roofline'].items()} } "
+                      f"dominant {r['dominant']} (H100 data sheet constants); host of {smi}")
+        if not (r["hlo_flops"] > 0 and r["memory"]["temp_bytes"] > 0
+                and r["collectives"]["total_bytes"] > 0):
+            raise RuntimeError(f"dry run {arch} x {shape}: {r}")
 
 
 def _to(tree, dev):
@@ -2592,12 +2821,19 @@ def main(argv=None) -> int:
             raise RuntimeError(f"the service path launched a forward-only kernel: {counts}")
         phase = "obs"
         reset_counts()
-        phase_obs(obs_root, tag_losses, hand_runs["eager"], smi)
+        phase_obs(obs_root, tag_losses, hand_runs, smi)
         counts = read_counts()
         log("obs", f"kernel launches over the phase: {counts} (none expected: training, the "
                    f"planner and the CLI run the plain routes)")
         if any(counts.values()):
             raise RuntimeError(f"the obs path launched a forward-only kernel: {counts}")
+        phase = "tp"
+        tp_counts = phase_tp(args.seed, smi)
+        log("tp", f"kernel launches of the tensor-parallel prefill: {tp_counts}")
+        phase = "dryrun"
+        t0 = time.perf_counter()
+        phase_dryrun(smi)
+        log("dryrun", f"{time.perf_counter() - t0:.1f} s in all")
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"

@@ -38,7 +38,7 @@ def main(argv=None) -> int:
                                obs_root=root)
         cs.reset_counts()
         t1 = time.perf_counter()
-        cs.phase_obs(root, losses, runs["eager"], smi)
+        cs.phase_obs(root, losses, runs, smi)
         counts = cs.read_counts()
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -1,0 +1,44 @@
+#!/usr/bin/env python3
+"""``chip_smoke.py``'s ``tp`` and ``dryrun`` phases alone on one NVIDIA GPU:
+tensor parallelism over ``"model"`` with ``[cuda:0] * 4`` standing for the
+mesh's positions (the gradient and train-step gate on full-width models at
+4 and 2 layers, then the full-depth qwen2-1.5b prefill through the flash
+kernel and ``generate``), and the dry run on ``meta`` tensors.
+
+    python3 scripts/tp_phase.py [--seed 0]
+
+Prints the phases' lines as ``chip_smoke.py`` does, then their seconds;
+exits 1 when a gate fails.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+import traceback
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    smi = cs.phase_env()
+    try:
+        counts = cs.phase_tp(args.seed, smi)
+        t1 = time.perf_counter()
+        cs.phase_dryrun(smi)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    cs.log("tp", f"prefill launches {counts}; tp {t1 - t0:.1f} s, dryrun "
+                 f"{time.perf_counter() - t1:.1f} s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

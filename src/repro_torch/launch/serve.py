@@ -28,6 +28,7 @@ from repro_torch.launch.device import resolve_device
 from repro_torch.models.model import (
     abstract_params, init_cache, init_params, input_specs, loss_fn)
 from repro_torch.optim.adam import leaves
+from repro_torch.parallel import tensor as tp_mod
 
 
 def _sync(devices):
@@ -81,7 +82,12 @@ def generate(cfg, params, prompts, gen_tokens: int, rules=None, prefix=None,
     a cache of its rows (the batch entry of ``cache_shardings``: the rows
     are split where the device count divides B, else every device decodes
     every row) and decodes them; the tokens are concatenated in device
-    order. When ``stats`` is given it is filled with ``prefill_s``,
+    order. Under rules that also split the parameters over ``"model"``,
+    each position holds its slice of the parameters
+    (``parallel.tensor.shard_params``) and of the cache (``cache_shardings``
+    puts ``kv_heads``, ``ssm_heads`` and ``ssm_inner`` on the axis), and a
+    row's positions decode its rows together. When ``stats`` is given it is
+    filled with ``prefill_s``,
     ``decode_s`` and ``decode_steps``, each time taken after every device
     has finished its work.
     """
@@ -90,14 +96,20 @@ def generate(cfg, params, prompts, gen_tokens: int, rules=None, prefix=None,
     del prefix
     B, P = prompts.shape
     total = P + gen_tokens + (cfg.frontend_tokens if cfg.frontend != "none" else 0)
-    devices = steps_mod.data_devices(cfg, rules) or [device]
-    if len(devices) > 1:
+    lay = tp_mod.layout(cfg, rules)
+    devices = [device] if lay is None else list(lay.grid.flat)
+    if lay is None:
+        cache = init_cache(cfg, B, total, device)
+    else:
         shape = InputShape("generate", total, B, "decode")
         spec = leaves(steps_mod.cache_shardings(cfg, shape, rules))[0].spec
-        rows = B // len(devices) if len(spec) > 1 and spec[1] is not None else B
-        cache = [init_cache(cfg, rows, total, d) for d in devices]
-    else:
-        cache = init_cache(cfg, B, total, device)
+        rows = B // lay.n if len(spec) > 1 and spec[1] is not None else B
+        if lay.m == 1:
+            cache = [init_cache(cfg, rows, total, d) for d in devices]
+        else:
+            # each position its slice of the parameters and of the cache
+            params = tp_mod.shard_params(cfg, params, rules)
+            cache = tp_mod.init_cache_shards(lay, rows, total)
     step = steps_mod.make_serve_step(cfg, rules)
 
     _sync(devices)

@@ -2,29 +2,42 @@
 logical axis-rule sets that TAG strategies lower into, as
 ``repro.launch.steps``.
 
-Single-mesh data parallelism runs under one controller, as the pipeline
-engine does: where the rules' batch axes span ``n > 1`` positions of the
-mesh, a step hands each position (a ``torch.device``, which may repeat)
-its replica of the parameters and its rows of the batch, split on dim 0
-where ``n`` divides it and replicated otherwise, as ``logical_spec``
-decides. MoE layers route as ``repro``'s do under the rules: ``repro``
-groups the global batch's tokens by the rules' batch axes
-(``moe.num_groups``), and each device's rows are that many groups over the
-device count where the rows are split, all of them where they are
-replicated (``_local_groups``); the aux loss takes the top-1 density of the
-whole batch. The train step averages the per-shard gradients with
-``parallel.sfb_dense.allreduce_grad`` and applies AdamW once, to the
-parameters on the first device. Rules that shard a parameter dim (a
-``"model"`` axis of size > 1) are tensor parallelism, ROADMAP queue 1,
-item 10. ``rules=None``, or a mesh of one device, is one device: the same
-ops as before, no copies. ``repro``'s ``jit_*_step`` builders wait for the
-dry run (item 10).
+The steps run under one controller, as the pipeline engine does, over the
+rules' mesh, whose positions are ``torch.device``s (which may repeat). The
+mesh's positions form a grid (``parallel.tensor.layout``): a row for each
+position of the rules' batch axes, a column for each position of the one
+other axis with more than one position (``"model"``).
+
+* **Data parallelism** (one column): each row gets its replica of the
+  parameters and its rows of the batch, split on dim 0 where the row count
+  divides it and replicated otherwise, as ``logical_spec`` decides. The
+  train step averages the rows' gradients with
+  ``parallel.sfb_dense.allreduce_grad`` and applies AdamW once, to the
+  parameters on the first device.
+* **Tensor parallelism** (more than one column): the steps take the
+  parameters as ``parallel.tensor.shard_params`` lays them out, one tree a
+  position, and a row's positions run the model split over the column axis
+  as ``parallel/tensor.py`` describes. The train step sums each shard's
+  gradient over the rows (a whole leaf's over every position), clips by the
+  global norm over the shards, and AdamW updates each shard in place on its
+  position, its moments laid out as the parameters
+  (``parallel.tensor.shard_state``).
+
+MoE layers route as ``repro``'s do under the rules: ``repro`` groups the
+global batch's tokens by the rules' batch axes (``moe.num_groups``), and
+each row's tokens are that many groups over the row count where the rows
+are split, all of them where they are replicated (``_local_groups``); the
+aux loss takes the top-1 density of the whole batch. ``rules=None``, or a
+mesh of one device, is one device: the same ops as before, no copies.
+
+``jit_train_step``, ``jit_serve_step`` and ``jit_prefill_step`` keep
+``repro``'s names, signatures and return tuples (the step and its
+shardings); nothing is jitted: the step is the one ``make_*_step`` returns.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -33,7 +46,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.optim.adam import (
     AdamW, clip_by_global_norm, from_leaves, global_norm, leaves)
-from repro_torch.parallel.sfb_dense import allreduce_grad
+from repro_torch.parallel import tensor as tp_mod
 from repro_torch.parallel.sharding import (
     AxisRules, NamedSharding, axis_rules, logical_spec)
 
@@ -90,26 +103,12 @@ def cache_shardings(cfg: ModelConfig, shape: InputShape, rules: AxisRules):
 
 def data_devices(cfg: ModelConfig, rules: AxisRules | None) -> list | None:
     """The devices a step spreads the batch over, in the order of the
-    rules' batch axes; None for one device (no rules, or a mesh of one).
-    Raises NotImplementedError where the rules shard a parameter dim or a
-    mesh axis outside the batch axes has more than one position."""
-    if rules is not None and not isinstance(rules, AxisRules):
-        raise TypeError(f"rules must be AxisRules or None, got {type(rules).__name__}")
-    if rules is None or rules.mesh is None or rules.mesh.size == 1:
-        return None
-    mesh = rules.mesh
-    sharded = [s.spec for s in leaves(param_shardings(cfg, rules))
-               if any(e is not None and rules.axis_size(e) > 1 for e in s.spec)]
-    ax = rules.mesh_axes("batch") or ()
-    ax = (ax,) if isinstance(ax, str) else tuple(ax)
-    rest = [a for a in mesh.axis_names if a not in ax]
-    if sharded or any(mesh.shape[a] > 1 for a in rest):
-        raise NotImplementedError(
-            f"rules over {mesh.shape} shard the parameters ({sharded[:2]}...) or replicate "
-            f"over a non-batch axis: tensor parallelism is not ported yet (ROADMAP queue 1, "
-            f"item 10)")
-    order = [mesh.axis_names.index(a) for a in (*ax, *rest)]
-    return list(np.transpose(mesh.devices, order).flat)
+    rules' batch axes (under tensor parallelism, each row's first position);
+    None for one device (no rules, or a mesh of one). Raises
+    NotImplementedError where the rules split a parameter dim over a mesh
+    axis the step cannot split (``parallel.tensor.layout``)."""
+    lay = tp_mod.layout(cfg, rules)
+    return None if lay is None else list(lay.grid[:, 0])
 
 
 def _rows_split(rules: AxisRules, t: torch.Tensor) -> bool:
@@ -177,25 +176,27 @@ class StepOptions:
 def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
                    options: StepOptions | None = None):
     """(params, batch) -> (loss, metrics, grads): the loss and its gradient by
-    autograd, over the rules' data-parallel devices (module docstring). The
-    loss and ``metrics`` (``ce``, ``aux``) are means over the shards, which
-    is the global-batch mean: ``loss_fn`` is an unmasked mean over equal
-    shards. ``grads`` lie on the parameters' device.
+    autograd, over the rules' rows (module docstring). The loss and
+    ``metrics`` (``ce``, ``aux``) are means over the rows, which is the
+    global-batch mean: ``loss_fn`` is an unmasked mean over equal rows. Under
+    data parallelism ``grads`` lie on the parameters' device; under tensor
+    parallelism ``params`` and ``grads`` are one tree a position
+    (``parallel.tensor.shard_params``).
 
-    Under MoE, every shard's forward runs before any backward: each MoE
+    Under MoE, every row's forward runs before any backward: each MoE
     layer's aux loss, E sum_e density_e mean_probs_e, takes the density (a
-    top-1 share, no gradient) of the whole batch, the mean of the shards'
-    (``loss_fn``'s ``"moe"`` stats), so that the mean of the shards' aux is
+    top-1 share, no gradient) of the whole batch, the mean of the rows'
+    (``loss_fn``'s ``"moe"`` stats), so that the mean of the rows' aux is
     ``repro``'s aux over the batch, gradient and all. A dense model has no
-    density to wait for: each shard's backward follows its forward, so that
+    density to wait for: each row's backward follows its forward, so that
     one autograd graph is held at a time."""
     options = options if options is not None else StepOptions()
-    devices = data_devices(cfg, rules)
+    lay = tp_mod.layout(cfg, rules)
+    opts = {"remat": options.remat, "loss_chunk": options.loss_chunk,
+            "remat_policy": options.remat_policy}
 
     def loss_of(params, batch):
-        return model_mod.loss_fn(cfg, params, batch, remat=options.remat,
-                                 loss_chunk=options.loss_chunk,
-                                 remat_policy=options.remat_policy)
+        return model_mod.loss_fn(cfg, params, batch, **opts)
 
     def one_device(params, batch):
         ps = leaves(params)
@@ -207,67 +208,112 @@ def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
             grads = from_leaves(params, torch.autograd.grad(loss, ps))
         return loss.detach(), {k: metrics[k].detach() for k in ("ce", "aux")}, grads
 
-    def data_parallel(params, batch):
-        dev = leaves(params)[0].device
-        n = len(devices)
-        groups = _local_groups(rules, devices, batch)
+    def over_rows(batch, run, dev):
+        """Each row's ``run(i, rows of the batch) -> (autograd leaves,
+        loss_fn's metrics)`` and its backward: (loss, metrics, each row's
+        gradients of its leaves)."""
+        homes = list(lay.grid[:, 0])
+        groups = _local_groups(rules, homes, batch)
 
-        def backward(ps, metrics, density):
-            d = ps[0].device
+        def backward(i, ps, metrics, density):
+            d = homes[i]
             aux = torch.zeros((), dtype=torch.float32, device=d)
-            for dens, (_, mean_probs) in zip(density, metrics["moe"], strict=True):
-                aux = aux + moe_mod.aux_loss(dens.to(d), mean_probs)
-            loss = metrics["ce"] + model_mod.MAX_SMOKE_AUX * aux
-            with torch.profiler.record_function("train/backward"):
-                grads = torch.autograd.grad(loss, ps)
+            with tp_mod.at(i):
+                for dens, (_, mean_probs) in zip(density, metrics["moe"], strict=True):
+                    aux = aux + moe_mod.aux_loss(dens.to(d), mean_probs)
+                loss = metrics["ce"] + model_mod.MAX_SMOKE_AUX * aux
+                with torch.profiler.record_function("train/backward"):
+                    grads = torch.autograd.grad(loss, ps, allow_unused=True)
+            # a leaf no program of the row read (a whole head the row's
+            # first position alone applies) has a zero gradient
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, ps, strict=True)]
             return grads, loss.detach().to(dev), {"ce": metrics["ce"].detach().to(dev),
                                                   "aux": aux.detach().to(dev)}
 
         pending, done = [], []
-        for d, mb in zip(devices, _scatter(rules, devices, batch), strict=True):
-            ps = [t.detach().to(d).requires_grad_(True) for t in leaves(params)]
-            with torch.profiler.record_function("train/loss"), moe_mod.routing(groups):
-                _, metrics = loss_of(from_leaves(params, ps), mb)
+        for i, mb in enumerate(_scatter(rules, homes, batch)):
+            with torch.profiler.record_function("train/loss"), moe_mod.routing(groups), \
+                    tp_mod.at(i):
+                ps, metrics = run(i, mb)
             if metrics["moe"]:
-                pending.append((ps, metrics))
+                pending.append((i, ps, metrics))
             else:
-                done.append(backward(ps, metrics, ()))
+                done.append(backward(i, ps, metrics, ()))
         density = [torch.stack([dens.to(dev) for dens, _ in layer]).mean(0)
-                   for layer in zip(*(m["moe"] for _, m in pending))]
+                   for layer in zip(*(m["moe"] for _, _, m in pending))]
         while pending:
             done.append(backward(*pending.pop(0), density))
-        del ps, metrics
-        with torch.profiler.record_function("train/allreduce"):
-            grads = [allreduce_grad(list(parts), out=0).to(dev) / n
-                     for parts in zip(*(g for g, _, _ in done), strict=True)]
         loss = torch.stack([lo for _, lo, _ in done]).mean()
         metrics = {k: torch.stack([m[k] for _, _, m in done]).mean() for k in ("ce", "aux")}
+        return loss, metrics, [g for g, _, _ in done]
+
+    def data_parallel(params, batch):
+        dev = leaves(params)[0].device
+        homes = list(lay.grid[:, 0])
+
+        def run(i, mb):
+            ps = [t.detach().to(homes[i]).requires_grad_(True) for t in leaves(params)]
+            return ps, loss_of(from_leaves(params, ps), mb)[1]
+        loss, metrics, rows = over_rows(batch, run, dev)
+        with torch.profiler.record_function("train/allreduce"):
+            grads = [tp_mod.all_reduce(list(parts), range(len(rows)), out=0).to(dev) / len(rows)
+                     for parts in zip(*rows, strict=True)]
         return loss, metrics, from_leaves(params, grads)
 
-    return one_device if devices is None else data_parallel
+    def tensor_parallel(shards, batch):
+        tp_mod.check_shards(lay, shards)
+        rows = lay.rows()
+        n_leaf = len(leaves(shards[0]))
+
+        def run(i, mb):
+            trees = [shards[p] for p in rows[i].positions]
+            ps = [[t.detach().requires_grad_(True) for t in leaves(tr)] for tr in trees]
+            _, metrics = tp_mod.loss_row(lay, rows[i], [from_leaves(tr, p) for tr, p in
+                                                        zip(trees, ps, strict=True)], mb, **opts)
+            return [t for p in ps for t in p], metrics
+        loss, metrics, by_row = over_rows(batch, run, lay.grid[0, 0])
+        per_position = [g[j * n_leaf:(j + 1) * n_leaf] for g in by_row for j in range(lay.m)]
+        with torch.profiler.record_function("train/allreduce"):
+            grads = tp_mod.sync_grads(lay, per_position, shards, 1.0 / lay.n)
+        return loss, metrics, grads
+
+    if lay is None:
+        return one_device
+    return data_parallel if lay.m == 1 else tensor_parallel
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, rules: AxisRules | None,
                     options: StepOptions | None = None):
     """(params, opt_state, step, batch) -> (params, opt_state, metrics): the
-    loss and its gradient (``make_grad_step``, over the rules' data-parallel
-    devices), clipping by the global norm and an AdamW update, which writes
-    into ``params`` and ``opt_state`` on their device. ``metrics`` holds
-    0-dim tensors ``loss``, ``ce``, ``aux`` and ``grad_norm``.
+    loss and its gradient (``make_grad_step``, over the rules' rows),
+    clipping by the global norm and an AdamW update, which writes into
+    ``params`` and ``opt_state`` on their devices. ``metrics`` holds 0-dim
+    tensors ``loss``, ``ce``, ``aux`` and ``grad_norm``. Under tensor
+    parallelism ``params`` is ``parallel.tensor.shard_params``'s list and
+    ``opt_state`` ``parallel.tensor.shard_state``'s.
 
     The phases run under ``torch.profiler.record_function`` ranges
-    (``train/loss``, ``train/backward``, ``train/allreduce`` under data
-    parallelism, ``train/clip``, ``train/optimizer``), so that a profile can
-    split the step's device time by phase."""
+    (``train/loss``, ``train/backward``, ``train/allreduce`` over several
+    rows or positions, ``train/clip``, ``train/optimizer``), so that a
+    profile can split the step's device time by phase."""
     options = options if options is not None else StepOptions()
     grad_step = make_grad_step(cfg, rules, options)
+    lay = tp_mod.layout(cfg, rules)
+    tensor_parallel = lay is not None and lay.m > 1
 
     def train_step(params, opt_state, step: int, batch):
         loss, metrics, grads = grad_step(params, batch)
         with torch.profiler.record_function("train/clip"):
-            grads, gnorm = clip_by_global_norm(grads, options.clip_norm)
+            if tensor_parallel:
+                grads, gnorm = tp_mod.clip_by_global_norm(lay, grads, options.clip_norm)
+            else:
+                grads, gnorm = clip_by_global_norm(grads, options.clip_norm)
         with torch.profiler.record_function("train/optimizer"):
-            params, opt_state = opt.update(params, opt_state, grads, step)
+            if tensor_parallel:
+                params, opt_state = tp_mod.adamw_update(lay, opt, params, opt_state, grads, step)
+            else:
+                params, opt_state = opt.update(params, opt_state, grads, step)
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
     return train_step
 
@@ -311,39 +357,86 @@ def make_pipeline_train_step(opt: AdamW, runner, options: StepOptions | None = N
 
 def make_prefill_step(cfg: ModelConfig, rules: AxisRules | None):
     """(params, batch) -> last-position logits (B, 1, V) on the parameters'
-    device; over the rules' data-parallel devices, each device prefills its
-    rows (MoE layers in ``_local_groups``)."""
-    devices = data_devices(cfg, rules)
+    (the first position's) device; over the rules' rows, each row prefills
+    its rows of the batch (MoE layers in ``_local_groups``), split over its
+    positions under tensor parallelism (``params`` then
+    ``parallel.tensor.shard_params``'s list)."""
+    lay = tp_mod.layout(cfg, rules)
 
     def prefill(params, batch):
-        if devices is None:
+        if lay is None:
             return model_mod.prefill_step(cfg, params, batch)
-        with moe_mod.routing(_local_groups(rules, devices, batch)):
-            outs = [model_mod.prefill_step(cfg, _replica(params, d), mb)
-                    for d, mb in zip(devices, _scatter(rules, devices, batch), strict=True)]
-        return _gather(rules, outs, batch["tokens"]).to(leaves(params)[0].device)
+        homes = list(lay.grid[:, 0])
+        rows = _scatter(rules, homes, batch)
+        with moe_mod.routing(_local_groups(rules, homes, batch)):
+            if lay.m > 1:
+                tp_mod.check_shards(lay, params)
+            outs = []
+            for row, mb in zip(lay.rows(), rows, strict=True):
+                with tp_mod.at(row.i):
+                    outs.append(tp_mod.prefill_row(lay, row, [params[p] for p in row.positions], mb)
+                                if lay.m > 1 else
+                                model_mod.prefill_step(cfg, _replica(params, row.devices[0]), mb))
+        return _gather(rules, outs, batch["tokens"]).to(homes[0])
     return prefill
 
 
 def make_serve_step(cfg: ModelConfig, rules: AxisRules | None):
     """One decode step: (params, cache, tokens (B, 1), pos) -> greedy next
-    token (B, 1) and the cache, updated in place. Over the rules'
-    data-parallel devices ``cache`` is a list, one cache a device holding
-    that device's rows (``cache_shardings``), and each device decodes its
-    rows (MoE layers in ``_local_groups``); the tokens come back on the
-    parameters' device in device order."""
-    devices = data_devices(cfg, rules)
+    token (B, 1) and the cache, updated in place. Over the rules' rows
+    ``cache`` is a list, one cache a row holding that row's rows of the
+    batch (``cache_shardings``), and each row decodes them (MoE layers in
+    ``_local_groups``); the tokens come back on the first device in row
+    order. Under tensor parallelism ``params`` is
+    ``parallel.tensor.shard_params``'s list and ``cache`` one cache a
+    position (``parallel.tensor.init_cache_shards``)."""
+    lay = tp_mod.layout(cfg, rules)
 
     def one(params, cache, tokens, pos):
         logits, cache = model_mod.decode_step(cfg, params, cache, tokens, pos)
         return torch.argmax(logits[:, -1], dim=-1)[:, None], cache
 
     def serve(params, cache, tokens, pos: int):
-        if devices is None:
+        if lay is None:
             return one(params, cache, tokens, pos)
-        shards = _scatter(rules, devices, {"tokens": tokens})
-        with moe_mod.routing(_local_groups(rules, devices, {"tokens": tokens})):
-            nxt = [one(_replica(params, d), c, mb["tokens"], pos)[0]
-                   for d, c, mb in zip(devices, cache, shards, strict=True)]
-        return _gather(rules, nxt, tokens).to(leaves(params)[0].device), cache
+        homes = list(lay.grid[:, 0])
+        shards = _scatter(rules, homes, {"tokens": tokens})
+        with moe_mod.routing(_local_groups(rules, homes, {"tokens": tokens})):
+            if lay.m > 1:
+                tp_mod.check_shards(lay, params)
+            nxt = []
+            for row, mb in zip(lay.rows(), shards, strict=True):
+                with tp_mod.at(row.i):
+                    if lay.m == 1:
+                        nxt.append(one(_replica(params, row.devices[0]), cache[row.i],
+                                       mb["tokens"], pos)[0])
+                        continue
+                    logits = tp_mod.decode_row(
+                        lay, row, [params[p] for p in row.positions],
+                        [cache[p] for p in row.positions], mb["tokens"], pos)
+                    nxt.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
+        return _gather(rules, nxt, tokens).to(homes[0]), cache
     return serve
+
+
+def jit_train_step(cfg, opt, rules, shape, options: StepOptions | None = None):
+    """``repro``'s signature and return tuple: (train step, parameter
+    shardings, optimizer-state shardings ``{"mu": ps, "nu": ps}``, batch
+    shardings). The step is ``make_train_step``'s: nothing is compiled."""
+    options = options if options is not None else StepOptions()
+    ps = param_shardings(cfg, rules)
+    return (make_train_step(cfg, opt, rules, options), ps, {"mu": ps, "nu": ps},
+            batch_shardings(cfg, shape, rules))
+
+
+def jit_serve_step(cfg, rules, shape):
+    """(serve step, parameter, cache and batch shardings), as ``repro``'s."""
+    return (make_serve_step(cfg, rules), param_shardings(cfg, rules),
+            cache_shardings(cfg, shape, rules), batch_shardings(cfg, shape, rules))
+
+
+def jit_prefill_step(cfg, rules, shape):
+    """(prefill step, parameter shardings, None, batch shardings), as
+    ``repro``'s."""
+    return (make_prefill_step(cfg, rules), param_shardings(cfg, rules), None,
+            batch_shardings(cfg, shape, rules))

@@ -31,6 +31,16 @@ def attn_defs(cfg) -> dict:
     return defs
 
 
+def shard_config(cfg, m: int):
+    """The config of one of ``m`` tensor-parallel shards of an attention
+    layer: ``H / m`` query heads and ``KV / m`` KV heads of the same width,
+    so that ``attention`` and ``decode_attention`` run on a shard's columns
+    of ``wq``, ``wk``, ``wv`` and rows of ``wo`` and return its share of the
+    output."""
+    return cfg.replace(num_heads=cfg.num_heads // m, num_kv_heads=cfg.num_kv_heads // m,
+                       head_dim=cfg.resolved_head_dim)
+
+
 def _project_qkv(cfg, p, x, pos):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim

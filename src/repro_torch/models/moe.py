@@ -120,16 +120,23 @@ class Route:
 
 def route(cfg, router, xt, C: int) -> Route:
     """Top-k routing of ``xt`` (G, Tg, D) and its capacity-C slot table."""
-    G, Tg, _ = xt.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    logits = (xt @ router).float()
+    return route_logits(cfg, (xt @ router).float(), C, xt.dtype)
+
+
+def route_logits(cfg, logits, C: int, dtype) -> Route:
+    """``route`` from the router's f32 logits (G, Tg, E), as a
+    tensor-parallel layer has them: the expert shards' columns concatenated.
+    ``dtype`` is the tokens' (``filled``'s dtype)."""
+    G, Tg, E = logits.shape
+    K = cfg.experts_per_token
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     # a stable sort keeps the lower expert first among equal probabilities,
     # as jax.lax.top_k does
     vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, e_idx = vals[..., :K], order[..., :K]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    ar = torch.arange(E, device=xt.device)
+    ar = torch.arange(E, device=dev)
     density = (e_idx[..., :1] == ar).float().mean(dim=(0, 1))
     mean_probs = probs.mean(dim=(0, 1))
     pos = rank_within_expert(e_idx, E)
@@ -137,49 +144,68 @@ def route(cfg, router, xt, C: int) -> Route:
     gate = torch.where(keep, gate, 0.0)
     slot = e_idx * (C + 1) + torch.where(keep, pos, C)          # column C takes the drops
     flat = slot.reshape(G, Tg * K)
-    tok = torch.arange(Tg, device=xt.device).view(1, Tg, 1).expand(G, Tg, K).reshape(G, Tg * K)
-    idx = torch.zeros((G, E * (C + 1)), dtype=torch.long, device=xt.device)
+    tok = torch.arange(Tg, device=dev).view(1, Tg, 1).expand(G, Tg, K).reshape(G, Tg * K)
+    idx = torch.zeros((G, E * (C + 1)), dtype=torch.long, device=dev)
     idx = idx.scatter(1, flat, tok).view(G, E, C + 1)[..., :C]
-    filled = torch.zeros((G, E * (C + 1)), dtype=xt.dtype, device=xt.device)
+    filled = torch.zeros((G, E * (C + 1)), dtype=dtype, device=dev)
     filled = filled.scatter(1, flat, 1.0).view(G, E, C + 1)[..., :C]
     return Route(probs, e_idx, gate, pos, keep, slot, idx, filled, density, mean_probs)
 
 
+def layer_capacity(cfg, x, groups: int | None = None) -> tuple:
+    """(G, Tg, C) of a layer over ``x`` (B, S, D): the group count
+    (``groups``, else ``num_groups``), tokens a group and slots an expert."""
+    T = x.shape[0] * x.shape[1]
+    G = num_groups(T) if groups is None else groups
+    return G, T // G, capacity(cfg, T // G)
+
+
 def moe_layer(cfg, p, x, groups: int | None = None):
     """x: (B, S, D) -> (y, Route). ``groups`` defaults to ``num_groups``."""
-    B, S, D = x.shape
-    E, K = cfg.num_experts, cfg.experts_per_token
-    T = B * S
-    G = num_groups(T) if groups is None else groups
-    Tg = T // G
-    C = capacity(cfg, Tg)
-    xt = x.reshape(G, Tg, D)
-    r = route(cfg, p["router"], xt, C)
+    G, Tg, C = layer_capacity(cfg, x, groups)
+    r = route(cfg, p["router"], x.reshape(G, Tg, x.shape[-1]), C)
+    return expert_ffn(cfg, p, x, r), r
 
-    # dispatch: gather token embeddings into expert slots, (E, G*C, D)
+
+def expert_ffn(cfg, p, x, r: Route, first: int = 0):
+    """The output (B, S, D) of the experts ``first .. first + E_loc - 1`` on
+    ``x`` routed by ``r``, where ``p`` holds those ``E_loc`` experts' weights
+    (all of them on one device; an expert shard's under tensor
+    parallelism). The other experts' assignments add nothing: a tensor
+    parallel layer sums the shards' outputs."""
+    B, S, D = x.shape
+    E = cfg.num_experts
+    G, _, C = r.idx.shape
+    T = B * S
+    Tg, K = T // G, r.e_idx.shape[-1]
+    E_loc = p["w_gate"].shape[0]
+    mine = slice(first, first + E_loc)
+
+    # dispatch: gather token embeddings into expert slots, (E_loc, G*C, D)
     offset = (torch.arange(G, device=x.device) * Tg).view(G, 1, 1)
-    tok = (r.idx + offset).transpose(0, 1).reshape(E, G * C)
-    xe = x.reshape(T, D)[tok] * r.filled.transpose(0, 1).reshape(E, G * C, 1)
+    tok = (r.idx[:, mine] + offset).transpose(0, 1).reshape(E_loc, G * C)
+    xe = x.reshape(T, D)[tok] * r.filled[:, mine].transpose(0, 1).reshape(E_loc, G * C, 1)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
-    ye = torch.bmm(h, p["w_down"]).view(E, G, C, D).transpose(0, 1)   # (G, E, C, D)
+    ye = torch.bmm(h, p["w_down"]).view(E_loc, G, C, D).transpose(0, 1)   # (G, E_loc, C, D)
 
     if cfg.moe_combine == "scatter":
         # combine on the expert side: weight each slot's output by its
         # token's gate and scatter-add into the tokens (duplicates add up)
         gate_slot = torch.zeros((G, E * (C + 1)), dtype=torch.float32, device=x.device)
         gate_slot = gate_slot.scatter_add(1, r.slot.reshape(G, Tg * K), r.gate.reshape(G, Tg * K))
-        weighted = ye * gate_slot.view(G, E, C + 1)[..., :C, None].to(x.dtype)
+        weighted = ye * gate_slot.view(G, E, C + 1)[:, mine, :C, None].to(x.dtype)
         y = torch.zeros((T, D), dtype=x.dtype, device=x.device).index_add(
-            0, (r.idx + offset).reshape(-1), weighted.reshape(G * E * C, D))
+            0, (r.idx[:, mine] + offset).reshape(-1), weighted.reshape(G * E_loc * C, D))
     else:
         # combine: gather each assignment's expert output, weight, sum over
-        # K. A dropped assignment's slot is clamped into range as
-        # mode="clip" does: junk, its gate is already 0
-        flat_slot = (r.slot - r.slot // (C + 1)).clamp_max(E * C - 1)   # e * C + pos
-        flat_slot = flat_slot + offset // Tg * (E * C)
-        yk = ye.reshape(G * E * C, D)[flat_slot.reshape(G, Tg * K)].view(G, Tg, K, D)
-        y = torch.sum(yk * r.gate[..., None].to(x.dtype), dim=2)
-    return y.reshape(B, S, D), r
+        # K. A dropped assignment's slot, or one of another shard's expert,
+        # is clamped into range as mode="clip" does: junk, its gate is 0
+        flat_slot = (r.slot - r.slot // (C + 1)).clamp_max(E * C - 1) - first * C
+        flat_slot = flat_slot.clamp(0, E_loc * C - 1) + offset // Tg * (E_loc * C)
+        gate = torch.where((r.e_idx >= first) & (r.e_idx < first + E_loc), r.gate, 0.0)
+        yk = ye.reshape(G * E_loc * C, D)[flat_slot.reshape(G, Tg * K)].view(G, Tg, K, D)
+        y = torch.sum(yk * gate[..., None].to(x.dtype), dim=2)
+    return y.reshape(B, S, D)
 
 
 def moe_fwd(cfg, p, x):

@@ -14,10 +14,12 @@ below, an array of ``torch.device``s with named axes. One controller drives
 every device (``exec.engine``), so a mesh needs no process group, and
 ``torch.distributed.DeviceMesh``, which does, is not used.
 
-``repro``'s ``logical_shard`` and ``rules_fingerprint`` have no counterpart:
-under one controller a sharding constraint inside the model changes no value
-(the data-parallel step in ``launch/steps.py`` places values by their specs
-itself), and the fingerprint only keys ``jax.checkpoint``'s trace cache.
+``logical_shard`` returns its input unchanged: under one controller a
+sharding constraint changes no value (the steps in ``launch/steps.py`` and
+``parallel/tensor.py`` place values by their specs themselves); it exists so
+that code ported from ``repro`` reads the same. ``rules_fingerprint`` is
+``repro``'s signature of the active rules, ``(sorted rule items, (mesh axis
+names, their sizes))``; ``launch/dryrun.py`` keys its results with it.
 """
 from __future__ import annotations
 
@@ -84,6 +86,21 @@ def current_rules() -> AxisRules | None:
     return getattr(_STATE, "rules", None)
 
 
+def rules_fingerprint():
+    """Hashable signature of the active rules, as ``repro``'s: the sorted
+    rule items and the mesh's axis names and sizes; None without rules or
+    mesh."""
+    r = current_rules()
+    if r is None or r.mesh is None:
+        return None
+    items = tuple(sorted(
+        (k, tuple(v) if isinstance(v, (list, tuple)) else v)
+        for k, v in r.rules.items()))
+    mesh_sig = (tuple(r.mesh.axis_names),
+                tuple(r.mesh.shape[a] for a in r.mesh.axis_names))
+    return (items, mesh_sig)
+
+
 @contextlib.contextmanager
 def axis_rules(rules: AxisRules):
     prev = getattr(_STATE, "rules", None)
@@ -121,6 +138,13 @@ def logical_spec(logical_axes, shape=None) -> tuple:
     while spec and spec[-1] is None:
         spec.pop()
     return tuple(spec)
+
+
+def logical_shard(x, *logical_axes):
+    """``x`` itself: ``repro`` constrains ``x`` to the sharding of its logical
+    axes, which under one controller changes no value."""
+    del logical_axes
+    return x
 
 
 @dataclass(frozen=True)

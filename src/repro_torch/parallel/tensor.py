@@ -1,0 +1,731 @@
+"""Tensor parallelism over one mesh axis (``"model"``), under one controller.
+
+This module is the one place that knows how a parameter dim is split over
+the axis. A *position* is one entry of the mesh's devices (a
+``torch.device``, which may repeat: ``[cuda:0] * 4`` on one card, ``[cpu] *
+4`` in the tests). The positions form a grid: a row for each position of the
+rules' batch axes, a column for each position of the model axis. A row holds
+its rows of the batch; column ``j`` holds slice ``j`` of every parameter
+dim that ``logical_spec`` puts on the axis (contiguous, equal slices), and
+every other leaf whole. One process drives every position, as the pipeline
+engine (``exec/engine.py``) and the data-parallel step do.
+
+Each position runs its own program, as one device of ``repro``'s SPMD
+program does: the residual stream is a list with one copy a position, and a
+layer runs in one of two modes.
+
+* **split**, where each position's columns are whole units: attention whose
+  ``H`` query heads and ``KV`` heads both divide over the axis (whole heads
+  in whole GQA groups), a dense MLP (a contiguous range of ``mlp``), an MoE
+  layer over ``experts``, the embedding and the head over ``vocab``. The
+  position computes its share from its stream copy: attention over its heads
+  (``models/attention.py::attention`` with ``shard_config``) and the rows of
+  ``wo`` that belong to them, the MLP over its columns of ``w_gate`` and
+  ``w_up`` and rows of ``w_down``, its experts' products
+  (``models/moe.py::expert_ffn``) after every position routed the same way
+  from the router's logits gathered in shard order, its vocabulary range of
+  the embedding (zeros elsewhere). ``reduce_partial`` sums the shares in
+  shard order, in f32, and each position takes a copy. The head's logit
+  columns are gathered in shard order before the CE, which stays
+  ``repro``'s.
+* **gathered**, otherwise: the layer's split leaves are gathered in shard
+  order (an all-gather) and every position computes the whole layer, as a
+  replicated layer runs. Under ``baseline_rules`` this is every Mamba-2
+  layer (its packed ``in_proj`` ``[z | xBC | dt]`` columns and the gated
+  norm over ``d_inner`` do not split into whole heads: reduced mamba2-130m's
+  552 columns cut at 276 on 2 positions, inside ``x``), attention where the
+  heads do not divide (qwen2-1.5b's 2 KV heads over 4 or 8 positions,
+  reduced qwen2-1.5b's 6 query heads over 4), and any leaf that other rules
+  put on the axis outside these patterns (norms with ``embed`` on the axis).
+  A gathered layer of the decode step gathers the cache leaves that the
+  axis splits before the step and writes each position's slice back after
+  it.
+
+The gradient of a split leaf is summed over the rows (``all_reduce``); that
+of a leaf every position holds whole is summed over every position, since
+each position's backward gives the share that flowed through its program.
+AdamW updates each position's leaves in place, once a tensor where
+positions share one (a replicated leaf on a repeated device); the moments
+follow the parameters' layout (``shard_state``). Clipping takes the global
+norm over the shards, each replicated leaf once.
+
+Each collective records its op and payload bytes, a participating position,
+in the counter that ``collectives()`` makes active; ``core/step_analysis.py``
+reads it and attributes compute to the position that ``at`` names.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+import contextlib
+import functools
+from dataclasses import dataclass
+import threading
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+from repro_torch.models import attention as attn
+from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import (
+    cross_entropy, index_tree, mlp_fwd, rms_norm, unstack_tree)
+from repro_torch.optim.adam import from_leaves, leaves
+from repro_torch.parallel.sfb_dense import allreduce_grad
+from repro_torch.parallel.sharding import AxisRules, axis_rules, logical_spec
+
+_STATE = threading.local()
+
+# the leaves a split layer needs on the axis, and the dim of each (of the
+# leaf of one period); any other layout of the unit's leaves runs gathered
+_ATTN_SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
+_MLP_SPLIT = {"w_gate": 1, "w_up": 1, "w_down": 0}
+_MOE_SPLIT = {"router": 1, "w_gate": 0, "w_up": 0, "w_down": 0}
+
+
+# ------------------------------------------------------------- positions
+
+@contextlib.contextmanager
+def at(row: int, col: int | None = None):
+    """Inside, compute runs for position ``(row, col)`` of the grid; ``col``
+    None is every position of the row."""
+    prev = getattr(_STATE, "pos", None)
+    _STATE.pos = (row, col)
+    try:
+        yield
+    finally:
+        _STATE.pos = prev
+
+
+def current_position():
+    """The ``(row, col)`` that ``at`` set, or None."""
+    return getattr(_STATE, "pos", None)
+
+
+def set_position(key) -> None:
+    """Make ``key`` the current position until the next ``at`` or
+    ``set_position`` (``core.step_analysis`` sets each autograd node's
+    position so as the backward pass runs it)."""
+    _STATE.pos = key
+
+
+class Collectives:
+    """Op name -> [count, payload bytes] a position, as the helpers below
+    record them: a collective adds to every position that takes part."""
+
+    def __init__(self):
+        self.tally = defaultdict(lambda: defaultdict(lambda: [0, 0]))
+
+    def record(self, op: str, nbytes: int, positions):
+        for p in positions:
+            e = self.tally[p][op]
+            e[0] += 1
+            e[1] += nbytes
+
+    def of(self, position: int = 0) -> dict:
+        """{op: (count, bytes)} of one position."""
+        return {op: tuple(v) for op, v in self.tally[position].items()}
+
+
+@contextlib.contextmanager
+def collectives():
+    """Inside, every collective helper records into the yielded counter."""
+    prev = getattr(_STATE, "coll", None)
+    _STATE.coll = Collectives()
+    try:
+        yield _STATE.coll
+    finally:
+        _STATE.coll = prev
+
+
+@contextlib.contextmanager
+def stand_in_rows(n: int):
+    """Inside, the grid's one traced row stands for ``n`` rows of the batch
+    axes (``launch/dryrun.py``): a gradient sum over the rows is recorded
+    with ``n`` participants."""
+    prev = getattr(_STATE, "rows", 1)
+    _STATE.rows = n
+    try:
+        yield
+    finally:
+        _STATE.rows = prev
+
+
+def _record(op: str, nbytes: int, positions, participants: int | None = None):
+    c = getattr(_STATE, "coll", None)
+    if c is not None and (participants or len(positions)) > 1:
+        c.record(op, int(nbytes), positions)
+
+
+def all_gather(parts: list, dim: int, devices, positions, to: int | None = None):
+    """Concatenate ``parts`` (one a position) along ``dim`` in shard order: a
+    copy on each position's device, or only position ``to``'s."""
+    full_bytes = sum(p.numel() for p in parts) * parts[0].element_size()
+    _record("all-gather", full_bytes, positions)
+    if to is not None:
+        return torch.cat([p.to(devices[to]) for p in parts], dim)
+    return [torch.cat([p.to(d) for p in parts], dim) for d in devices]
+
+
+def reduce_partial(parts: list, devices, positions) -> list:
+    """Sum the positions' partial results in shard order, in f32, cast back
+    to their dtype; a copy on each position's device (an all-reduce)."""
+    _record("all-reduce", parts[0].numel() * 4, positions)
+    acc = parts[0].float()
+    for p in parts[1:]:
+        acc = acc + p.to(acc.device).float()
+    acc = acc.to(parts[0].dtype)
+    return [acc.to(d) for d in devices]
+
+
+def all_reduce(parts: list, positions, participants: int | None = None,
+               out: int | None = None):
+    """The gradient sum, a copy on each part's device, or only part
+    ``out``'s (``parallel.sfb_dense.allreduce_grad``); ``participants``
+    counts the positions where stand-ins take part too."""
+    _record("all-reduce", parts[0].numel() * parts[0].element_size(), list(positions),
+            participants)
+    return allreduce_grad(parts, out)
+
+
+# ---------------------------------------------------------------- layout
+
+@dataclass(frozen=True)
+class Row:
+    """One row of the grid: its index, devices and flat position indices."""
+    i: int
+    devices: tuple
+    positions: tuple
+
+
+@dataclass
+class Layout:
+    """How ``cfg``'s parameters lie over ``rules``' mesh: ``grid`` (rows over
+    the batch axes, columns over ``axis``), ``dims`` (a tree like the
+    parameters: the dim of each leaf split over ``axis``, or None) and
+    ``modes`` ("split" or "gathered" for each unit: ``embed``, ``head`` and
+    ``layer{j}/mixer``, ``layer{j}/ffn``)."""
+    cfg: object
+    rules: AxisRules
+    axis: str | None
+    grid: np.ndarray
+    dims: dict
+    modes: dict
+
+    @property
+    def n(self) -> int:
+        return self.grid.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.grid.shape[1]
+
+    def rows(self) -> list:
+        return [Row(i, tuple(self.grid[i]), tuple(range(i * self.m, (i + 1) * self.m)))
+                for i in range(self.n)]
+
+    @functools.cached_property
+    def period_dims(self) -> dict:
+        """``dims`` of one period's leaves (the stacked dim taken off)."""
+        return _map_dims(self.dims["blocks"], lambda d: None if d is None else d - 1)
+
+
+def _map_dims(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_dims(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _batch_axes(rules) -> tuple:
+    ax = rules.mesh_axes("batch") or ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def layout(cfg, rules: AxisRules | None) -> Layout | None:
+    """The layout of ``cfg`` under ``rules``; None for one device (no rules,
+    or a mesh of one). ``axis`` is the one mesh axis outside the batch axes
+    with more than one position (None: data parallelism alone, ``m`` 1).
+    Raises NotImplementedError where two such axes exist, or where a
+    parameter dim names a mesh axis of more than one position other than
+    ``axis`` (a batch axis, which would shard the parameters over the rows,
+    or a tuple of axes), and TypeError where ``rules`` is no ``AxisRules``."""
+    if rules is not None and not isinstance(rules, AxisRules):
+        raise TypeError(f"rules must be AxisRules or None, got {type(rules).__name__}")
+    if rules is None or rules.mesh is None or rules.mesh.size == 1:
+        return None
+    mesh = rules.mesh
+    bax = _batch_axes(rules)
+    rest = [a for a in mesh.axis_names if a not in bax]
+    tp = [a for a in rest if mesh.shape[a] > 1]
+    if len(tp) > 1:
+        raise NotImplementedError(f"rules over {mesh.shape} need parameters split over "
+                                  f"{tp}: the step splits them over one axis")
+    axis = tp[0] if tp else None
+    abstract, axes = model_mod.abstract_params(cfg), model_mod.param_axes(cfg)
+
+    def dim_of(ax, t):
+        with axis_rules(rules):
+            spec = logical_spec(ax, shape=tuple(t.shape))
+        found = None
+        for d, e in enumerate(spec):
+            if e is None:
+                continue
+            names = e if isinstance(e, tuple) else (e,)
+            if all(mesh.shape[a] == 1 for a in names):
+                continue
+            if e != axis:
+                raise NotImplementedError(
+                    f"a parameter dim of shape {tuple(t.shape)} (axes {ax}) lies on mesh axis "
+                    f"{e!r} of {mesh.shape}: the step cannot split parameters there")
+            found = d
+        return found
+
+    def walk(ax, t):
+        if isinstance(ax, dict):
+            return {k: walk(ax[k], t[k]) for k in ax}
+        return dim_of(ax, t)
+    dims = walk(axes, abstract)
+    order = [mesh.axis_names.index(a) for a in (*bax, *(a for a in rest if a != axis),
+                                                 *((axis,) if axis else ()))]
+    grid = np.transpose(mesh.devices, order).reshape(-1, mesh.shape[axis] if axis else 1)
+    lay = Layout(cfg, rules, axis, grid, dims, {})
+    lay.modes = _modes(lay)
+    return lay
+
+
+def _fits(dims: dict, want: dict) -> bool:
+    return all(dims[k] == want[k] for k in dims)
+
+
+def _modes(lay: Layout) -> dict:
+    cfg, m = lay.cfg, lay.m
+    modes = {}
+    pd = lay.period_dims
+    for j, ch in enumerate(cfg.pattern):
+        mix = pd[f"layer{j}"]["mixer"]
+        split = (m > 1 and ch == "A" and cfg.num_heads % m == 0
+                 and cfg.num_kv_heads % m == 0 and _fits(mix, _ATTN_SPLIT))
+        modes[f"layer{j}/mixer"] = "split" if split else "gathered"
+        if cfg.d_ff > 0:
+            ffn = pd[f"layer{j}"]["ffn"]
+            want = _MOE_SPLIT if tf_mod._layer_is_moe(cfg, j) else _MLP_SPLIT
+            modes[f"layer{j}/ffn"] = "split" if m > 1 and _fits(ffn, want) else "gathered"
+    modes["embed"] = "split" if m > 1 and lay.dims["embed"] == 0 else "gathered"
+    head = lay.dims["embed"] == 0 if cfg.tie_embeddings else lay.dims["head"] == 1
+    modes["head"] = "split" if m > 1 and head else "gathered"
+    return modes
+
+
+def describe(lay: Layout) -> str:
+    """The units that run gathered, as one line."""
+    gathered = sorted(k for k, v in lay.modes.items() if v == "gathered")
+    return f"{lay.m} positions on {lay.axis!r}; gathered: {gathered or 'none'}"
+
+
+# ------------------------------------------------------- shards of a tree
+
+def _slice(t, dim: int | None, j: int, m: int):
+    if dim is None:
+        return t
+    w = t.shape[dim] // m
+    return t.narrow(dim, j * w, w)
+
+
+def _shard(lay: Layout, tree, dims) -> list:
+    """One tree a position (flat grid order) of ``tree``'s slices; a slice
+    moves to the position's device, so positions on one device share it."""
+    if isinstance(tree, dict):
+        per = {k: _shard(lay, tree[k], dims[k]) for k in tree}
+        return [{k: v[p] for k, v in per.items()} for p in range(lay.grid.size)]
+    cols = [_slice(tree, dims, j, lay.m) for j in range(lay.m)]
+    return [cols[j].to(lay.grid[i, j]) for i in range(lay.n) for j in range(lay.m)]
+
+
+def shard_params(cfg, params, rules: AxisRules) -> list:
+    """Each position's slice of every leaf of ``params``, as ``logical_spec``
+    gives it: a list of trees in flat grid order (rows over the batch axes,
+    then the model axis). A slice is a view where the position's device is
+    the leaf's, and a replicated leaf is the leaf itself there: nothing is
+    copied that need not be."""
+    lay = layout(cfg, rules)
+    return _shard(lay, params, lay.dims)
+
+
+def shard_state(cfg, state: dict, rules: AxisRules) -> dict:
+    """AdamW's moments ``{"mu", "nu"}`` laid out as ``shard_params`` lays out
+    the parameters."""
+    return {k: shard_params(cfg, v, rules) for k, v in state.items()}
+
+
+def gather_params(cfg, shards: list, rules: AxisRules):
+    """The inverse of ``shard_params``: every leaf whole, on the first
+    position's device, the slices of row 0 concatenated in shard order."""
+    lay = layout(cfg, rules)
+    dev = lay.grid[0, 0]
+
+    def rec(nodes, dims):
+        if isinstance(nodes[0], dict):
+            return {k: rec([t[k] for t in nodes], dims[k]) for k in nodes[0]}
+        if dims is None:
+            return nodes[0].to(dev)
+        return torch.cat([t.to(dev) for t in nodes[:lay.m]], dims)
+    return rec(shards, lay.dims)
+
+
+# ------------------------------------------------- the programs of a row
+
+def _each(row: Row, fn, *per_position) -> list:
+    """``fn`` at each position of ``row``, on the position's arguments."""
+    out = []
+    for j, args in enumerate(zip(*per_position, strict=True)):
+        with at(row.i, j):
+            out.append(fn(*args))
+    return out
+
+
+def _gather_leaf(row: Row, parts: list, dim, to: int | None = None):
+    """A leaf whole at each position (or at ``to``): gathered where split."""
+    if dim is None:
+        return parts if to is None else parts[to]
+    return all_gather(parts, dim, row.devices, row.positions, to)
+
+
+def _gather_unit(row: Row, units: list, dims: dict) -> list:
+    full = {k: _gather_leaf(row, [u[k] for u in units], dims[k]) for k in units[0]}
+    return [{k: v[j] for k, v in full.items()} for j in range(len(units))]
+
+
+def _embed(lay, row, ps, batch, prefix: bool = True):
+    """The stack's input on each position: (xs, pos a position, n_prefix);
+    with ``prefix``, behind the projected ``batch["prefix"]`` where the
+    config has a frontend, as ``model.embed_inputs``."""
+    cfg = lay.cfg
+    ids = [batch["tokens"].to(d) for d in row.devices]
+    if lay.modes["embed"] == "split":
+        def look(w, t, j):
+            V = w.shape[0]
+            mine = (t >= j * V) & (t < (j + 1) * V)
+            e = w[(t - j * V).clamp(0, V - 1)]
+            return torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+        xs = reduce_partial(_each(row, look, [p["embed"] for p in ps], ids, range(lay.m)),
+                            row.devices, row.positions)
+    else:
+        ws = _gather_leaf(row, [p["embed"] for p in ps], lay.dims["embed"])
+        xs = _each(row, lambda w, t: w[t], ws, ids)
+    xs = _each(row, lambda x: x * (cfg.d_model ** 0.5), xs)
+    n_prefix = 0
+    if prefix and cfg.frontend != "none":
+        fp = _gather_leaf(row, [p["frontend_proj"] for p in ps], lay.dims["frontend_proj"])
+        xs = _each(row, lambda x, w: torch.cat([batch["prefix"].to(x.device).to(x.dtype) @ w, x],
+                                               dim=1), xs, fp)
+        n_prefix = batch["prefix"].shape[1]
+    pos = [torch.arange(xs[0].shape[1], device=d) for d in row.devices]
+    return xs, pos, n_prefix
+
+
+def _mixer(lay, row, key, ch, units, dims, hs, pos):
+    cfg = lay.cfg
+    if lay.modes[f"{key}/mixer"] == "split":
+        scfg = attn.shard_config(cfg, lay.m)
+        parts = _each(row, lambda p, h, q: attn.attention(scfg, p, h, q)[0], units, hs, pos)
+        return reduce_partial(parts, row.devices, row.positions)
+    full = _gather_unit(row, units, dims)
+    if ch == "A":
+        return _each(row, lambda p, h, q: attn.attention(cfg, p, h, q)[0], full, hs, pos)
+    return _each(row, lambda p, h: ssm_mod.mamba_fwd(cfg, p, h)[0], full, hs)
+
+
+def _ffn(lay, row, key, j, units, dims, hs, groups):
+    """Each position's FFN output and the MoE layer's route (position 0's;
+    None on a dense layer)."""
+    cfg = lay.cfg
+    split = lay.modes[f"{key}/ffn"] == "split"
+    if not tf_mod._layer_is_moe(cfg, j):
+        if split:
+            return reduce_partial(_each(row, mlp_fwd, units, hs), row.devices,
+                                  row.positions), None
+        return _each(row, mlp_fwd, _gather_unit(row, units, dims), hs), None
+    if not split:
+        outs = _each(row, lambda p, h: moe_mod.moe_layer(cfg, p, h, groups),
+                     _gather_unit(row, units, dims), hs)
+        return [y for y, _ in outs], outs[0][1]
+    G, Tg, C = moe_mod.layer_capacity(cfg, hs[0], groups)
+    D = hs[0].shape[-1]
+    parts = _each(row, lambda p, h: (h.reshape(G, Tg, D) @ p["router"]).float(), units, hs)
+    logits = all_gather(parts, -1, row.devices, row.positions)
+    # every position routes alike, from the logits of every expert
+    routes = _each(row, lambda lg, h: moe_mod.route_logits(cfg, lg, C, h.dtype), logits, hs)
+    E_loc = cfg.num_experts // lay.m
+    ys = _each(row, lambda p, h, r, jj: moe_mod.expert_ffn(cfg, p, h, r, first=jj * E_loc),
+               units, hs, routes, range(lay.m))
+    return reduce_partial(ys, row.devices, row.positions), routes[0]
+
+
+def _period(lay, row, pps, xs, pos, groups):
+    """One period of layers over the row's positions: (xs, aux, stats), as
+    ``transformer.period_fwd``."""
+    cfg = lay.cfg
+    pd = lay.period_dims
+    aux = torch.zeros((), dtype=torch.float32, device=row.devices[0])
+    stats = []
+    for j, ch in enumerate(cfg.pattern):
+        key = f"layer{j}"
+        lps, dims = [pp[key] for pp in pps], pd[key]
+        g1 = _gather_leaf(row, [lp["norm1"] for lp in lps], dims["norm1"])
+        hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g1)
+        mix = _mixer(lay, row, key, ch, [lp["mixer"] for lp in lps], dims["mixer"], hs, pos)
+        xs = _each(row, torch.add, xs, mix)
+        if cfg.d_ff > 0:
+            g2 = _gather_leaf(row, [lp["norm2"] for lp in lps], dims["norm2"])
+            hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g2)
+            ys, r = _ffn(lay, row, key, j, [lp["ffn"] for lp in lps], dims["ffn"], hs, groups)
+            xs = _each(row, torch.add, xs, ys)
+            if r is not None:
+                aux = aux + moe_mod.aux_loss(r.density, r.mean_probs)
+                stats.append((r.density, r.mean_probs))
+    return xs, aux, tuple(stats)
+
+
+def _stack(lay, row, blocks, xs, pos, remat: bool, remat_policy: str):
+    """``transformer.stack_fwd`` over the row's positions. With ``remat``
+    each period runs under one checkpoint, so that its recomputation repeats
+    every position's compute and every collective of the period."""
+    policy = tf_mod.REMAT_POLICIES[remat_policy]
+    fn = _period
+    if remat and policy != "everything":
+        kw = {} if policy is None else {
+            "context_fn": lambda: create_selective_checkpoint_contexts(policy)}
+
+        def fn(lay, row, pps, xs, pos, groups):
+            return checkpoint(_period, lay, row, pps, xs, pos, groups, use_reentrant=False,
+                              **kw)
+    groups = moe_mod.stack_groups(xs[0].shape[0] * xs[0].shape[1])
+    aux = torch.zeros((), dtype=torch.float32, device=row.devices[0])
+    stats = ()
+    per = [unstack_tree(b) for b in blocks]
+    for k in range(len(per[0])):
+        xs, a, st = fn(lay, row, [p[k] for p in per], xs, pos, groups)
+        aux = aux + a
+        stats += st
+    return xs, aux, stats
+
+
+def _final(lay, row, ps, xs):
+    g = _gather_leaf(row, [p["final_norm"] for p in ps], lay.dims["final_norm"])
+    return _each(row, lambda x, w: rms_norm(x, w, lay.cfg.norm_eps), xs, g)
+
+
+def _logits(lay, row, ps, hs):
+    """The logits on the row's first position: the head's (or the tied
+    embedding's) column shards gathered in shard order, or the whole head
+    there."""
+    cfg = lay.cfg
+    key = "embed" if cfg.tie_embeddings else "head"
+
+    def head(h, w):
+        return h @ (w.T if cfg.tie_embeddings else w)
+    if lay.modes["head"] == "split":
+        parts = _each(row, head, hs, [p[key] for p in ps])
+        return all_gather(parts, -1, row.devices, row.positions, to=0)
+    w = _gather_leaf(row, [p[key] for p in ps], lay.dims[key], to=0)
+    with at(row.i, 0):
+        return head(hs[0], w)
+
+
+def loss_row(lay, row, ps, batch, *, remat=True, loss_chunk=0, remat_policy="full"):
+    """``model.loss_fn`` of one row's batch over its positions' parameters
+    ``ps`` (one tree a position): (loss, {"ce", "aux", "moe"}) on the row's
+    first device."""
+    if remat_policy not in tf_mod.REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}; "
+                         f"known: {sorted(tf_mod.REMAT_POLICIES)}")
+    xs, pos, n_prefix = _embed(lay, row, ps, batch)
+    xs, aux, stats = _stack(lay, row, [p["blocks"] for p in ps], xs, pos, remat, remat_policy)
+    hs = _final(lay, row, ps, xs)
+    if n_prefix:
+        hs = [h[:, n_prefix:] for h in hs]
+    labels = batch["labels"].long().to(row.devices[0])
+    S = hs[0].shape[1]
+    if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
+        def chunk_ce(lb, *hb):
+            return cross_entropy(_logits(lay, row, ps, list(hb)), lb)
+
+        n = S // loss_chunk
+        tot = torch.zeros((), dtype=torch.float32, device=row.devices[0])
+        for i in range(n):
+            sl = slice(i * loss_chunk, (i + 1) * loss_chunk)
+            tot = tot + checkpoint(chunk_ce, labels[:, sl], *[h[:, sl] for h in hs],
+                                   use_reentrant=False)
+        ce = tot / n
+    else:
+        ce = cross_entropy(_logits(lay, row, ps, hs), labels)
+    return ce + model_mod.MAX_SMOKE_AUX * aux, {"ce": ce, "aux": aux, "moe": stats}
+
+
+def prefill_row(lay, row, ps, batch):
+    """``model.prefill_step`` of one row: last-position logits (B, 1, V)."""
+    xs, pos, _ = _embed(lay, row, ps, batch)
+    xs, _, _ = _stack(lay, row, [p["blocks"] for p in ps], xs, pos, False, "full")
+    hs = _final(lay, row, ps, xs)
+    return _logits(lay, row, ps, [h[:, -1:] for h in hs])
+
+
+# ---------------------------------------------------------------- decode
+
+def _cache_dims(lay: Layout, cache):
+    """The dim of each cache leaf split over the axis, as ``cache_shardings``
+    lays it out (or None)."""
+    axes = model_mod.cache_axes(lay.cfg)
+
+    def rec(ax, t):
+        if isinstance(ax, dict):
+            return {k: rec(ax[k], t[k]) for k in ax}
+        with axis_rules(lay.rules):
+            spec = logical_spec(ax, shape=tuple(t.shape))
+        return next((d for d, e in enumerate(spec) if e == lay.axis and lay.axis), None)
+    return rec(axes, cache)
+
+
+def init_cache_shards(lay: Layout, rows: int, seq_len: int) -> list:
+    """Each position's decode cache (flat grid order) for ``rows`` rows of a
+    ``seq_len`` sequence: the leaves that ``cache_shardings`` puts on the
+    axis (``kv_heads``, ``ssm_heads``, ``ssm_inner``) split, zeros on the
+    position's device."""
+    full = model_mod.cache_specs(lay.cfg, rows, seq_len)
+    dims = _cache_dims(lay, full)
+
+    def make(t, d, dev, j):
+        shape = list(t.shape)
+        if d is not None:
+            shape[d] //= lay.m
+        return torch.zeros(shape, dtype=t.dtype, device=dev)
+
+    def rec(t, d, dev, j):
+        if isinstance(t, dict):
+            return {k: rec(t[k], d[k], dev, j) for k in t}
+        return make(t, d, dev, j)
+    return [rec(full, dims, lay.grid[i, j], j) for i in range(lay.n) for j in range(lay.m)]
+
+
+def _decode_mixer(lay, row, key, ch, units, dims, hs, caches, cdims, pos: int):
+    cfg = lay.cfg
+    if lay.modes[f"{key}/mixer"] == "split":
+        scfg = attn.shard_config(cfg, lay.m)
+        parts = _each(row, lambda p, h, c: attn.decode_attention(scfg, p, h, c, pos)[0],
+                      units, hs, caches)
+        return reduce_partial(parts, row.devices, row.positions)
+    full = _gather_unit(row, units, dims)
+    # the cache leaves the axis splits, whole on each position for the step
+    whole = _gather_unit(row, caches, cdims)
+    if ch == "A":
+        outs = _each(row, lambda p, h, c: attn.decode_attention(cfg, p, h, c, pos)[0],
+                     full, hs, whole)
+    else:
+        outs = _each(row, lambda p, h, c: ssm_mod.mamba_decode(cfg, p, h, c)[0], full, hs, whole)
+    for j, (c, w) in enumerate(zip(caches, whole, strict=True)):
+        for k, d in cdims.items():
+            if d is not None:
+                c[k].copy_(_slice(w[k], d, j, lay.m))
+    return outs
+
+
+def decode_row(lay, row, ps, caches, tokens, pos: int):
+    """``model.decode_step`` of one row's tokens (B, 1) over its positions'
+    parameters and caches (updated in place): logits (B, 1, V) on the row's
+    first device."""
+    cfg = lay.cfg
+    xs, _, _ = _embed(lay, row, ps, {"tokens": tokens}, prefix=False)
+    groups = moe_mod.stack_groups(xs[0].shape[0] * xs[0].shape[1])
+    pd = lay.period_dims
+    cd = _cache_dims(lay, model_mod.cache_specs(cfg, 1, 1))
+    for i in range(cfg.num_periods):
+        pps = [index_tree(p["blocks"], i) for p in ps]
+        pcs = [index_tree(c, i) for c in caches]
+        for j, ch in enumerate(cfg.pattern):
+            key = f"layer{j}"
+            lps, dims = [pp[key] for pp in pps], pd[key]
+            cdims = {k: None if d is None else d - 1 for k, d in cd[key].items()}
+            g1 = _gather_leaf(row, [lp["norm1"] for lp in lps], dims["norm1"])
+            hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g1)
+            mix = _decode_mixer(lay, row, key, ch, [lp["mixer"] for lp in lps], dims["mixer"],
+                                hs, [pc[key] for pc in pcs], cdims, pos)
+            xs = _each(row, torch.add, xs, mix)
+            if cfg.d_ff > 0:
+                g2 = _gather_leaf(row, [lp["norm2"] for lp in lps], dims["norm2"])
+                hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g2)
+                ys, _ = _ffn(lay, row, key, j, [lp["ffn"] for lp in lps], dims["ffn"], hs,
+                             groups)
+                xs = _each(row, torch.add, xs, ys)
+    return _logits(lay, row, ps, _final(lay, row, ps, xs))
+
+
+# ------------------------------------------------- gradients and update
+
+def sync_grads(lay: Layout, grads: list, shards: list, scale: float) -> list:
+    """``grads[p]``: position ``p``'s leaf gradients (flat, ``leaves``
+    order) of its own program. A split leaf's are summed over the rows, a
+    whole leaf's over every position; each times ``scale``. Returns one tree
+    a position, shaped as ``shards``."""
+    flat_dims = leaves(lay.dims)
+    out = [[None] * len(flat_dims) for _ in grads]
+    everyone = list(range(lay.grid.size))
+    stand_in = getattr(_STATE, "rows", 1)
+    for k, d in enumerate(flat_dims):
+        groups = [everyone] if d is None else [
+            [i * lay.m + j for i in range(lay.n)] for j in range(lay.m)]
+        for g in groups:
+            summed = all_reduce([grads[p][k] for p in g], g, len(g) * stand_in)
+            for p, s in zip(g, summed, strict=True):
+                out[p][k] = s * scale
+    return [from_leaves(shards[p], out[p]) for p in range(len(grads))]
+
+
+def clip_by_global_norm(lay: Layout, grads: list, max_norm: float):
+    """Scale every position's gradients so that their global norm, over the
+    shards of row 0 with each whole leaf once, is at most ``max_norm``.
+    Returns (grads, the norm before clipping) as ``optim.adam``'s."""
+    dev = lay.grid[0, 0]
+    flat_dims = leaves(lay.dims)
+    sq = []
+    for j in range(lay.m):
+        for g, d in zip(leaves(grads[j]), flat_dims, strict=True):
+            if d is not None or j == 0:
+                sq.append(torch.sum(g.float() ** 2).to(dev))
+    n = torch.sqrt(sum(sq))
+    scale = torch.minimum(torch.ones_like(n),
+                          torch.full_like(n, max_norm) / torch.clamp_min(n, 1e-9))
+    out = []
+    for tree in grads:
+        ls = leaves(tree)
+        s = scale.to(ls[0].device)
+        out.append(from_leaves(tree, [(g.float() * s).to(g.dtype) for g in ls]))
+    return out, n
+
+
+def adamw_update(lay: Layout, opt, shards: list, state: dict, grads: list, step: int):
+    """AdamW on every position's leaves, in place on the position's device;
+    a tensor that several positions share is updated once."""
+    seen = set()
+    for p, tree in enumerate(shards):
+        keep = [k for k, t in enumerate(leaves(tree)) if id(t) not in seen]
+        seen.update(id(t) for t in leaves(tree))
+        if not keep:
+            continue
+
+        def pick(t, keep=keep):
+            ls = leaves(t)
+            return {f"{k:06d}": ls[k] for k in keep}
+        with at(p // lay.m, p % lay.m):
+            opt.update(pick(tree), {"mu": pick(state["mu"][p]), "nu": pick(state["nu"][p])},
+                       pick(grads[p]), step)
+    return shards, state
+
+
+def check_shards(lay: Layout, shards) -> None:
+    """Raise TypeError unless ``shards`` is one tree a position."""
+    if not isinstance(shards, list) or len(shards) != lay.grid.size:
+        raise TypeError(f"under tensor parallelism over {lay.m} positions a step takes "
+                        f"parallel.tensor.shard_params(cfg, params, rules), one tree for each "
+                        f"of the {lay.grid.size} positions; got {type(shards).__name__}")

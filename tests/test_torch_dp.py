@@ -331,16 +331,31 @@ def test_dp_grads_match_one_device(arch, n_dev, rows):
 
 
 def test_tensor_parallel_rules_raise():
-    """Rules that shard a parameter dim (a ``"model"`` axis of size 2) are
-    tensor parallelism, which waits for ROADMAP queue 1, item 10; a
+    """What the steps still refuse: rules that are no ``AxisRules``
+    (TypeError); a parameter dim that names a mesh axis the step cannot split
+    over, a batch axis (``embed`` on ``"data"``) or a second axis beside
+    ``"model"`` (NotImplementedError); under tensor parallelism, a whole
+    parameter tree where the shards are due (TypeError). Rules that split
+    parameters over ``"model"`` build (tests/test_torch_tp.py runs them); a
     ``"model"`` axis of size 1 is data parallelism."""
     cfg = _cfg("qwen2-1.5b")
-    tp = tsteps.baseline_rules(tmesh.make_mesh((2, 2), ("data", "model"), [CPU] * 4))
-    for build in (lambda r: tsteps.make_train_step(cfg, AdamW(), r),
-                  lambda r: tsteps.make_prefill_step(cfg, r),
-                  lambda r: tsteps.make_serve_step(cfg, r)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-            build(tp)
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+    bad = [tsteps.baseline_rules(mesh, overrides={"embed": "data"}),
+           tsteps.baseline_rules(tmesh.make_mesh((1, 2, 2), ("data", "expert", "model"),
+                                                 [CPU] * 4), overrides={"experts": "expert"})]
+    for rules in bad:
+        for build in (lambda r: tsteps.make_train_step(cfg, AdamW(), r),
+                      lambda r: tsteps.make_prefill_step(cfg, r),
+                      lambda r: tsteps.make_serve_step(cfg, r)):
+            with pytest.raises(NotImplementedError, match="split"):
+                build(rules)
+    tp = tsteps.baseline_rules(mesh)
+    assert tsteps.data_devices(cfg, tp) == [CPU, CPU]
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    batch = {k: torch.as_tensor(v).long() for k, v in _batch(cfg.vocab_size, 4, 16, 0).items()}
+    with pytest.raises(TypeError, match="shard_params"):
+        tsteps.make_grad_step(cfg, tp)(params, batch)
     dp = tsteps.baseline_rules(tmesh.make_mesh((2, 1), ("data", "model"), [CPU] * 2))
     assert tsteps.data_devices(cfg, dp) == [CPU, CPU]
     with pytest.raises(TypeError, match="AxisRules"):

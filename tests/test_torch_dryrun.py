@@ -1,0 +1,125 @@
+"""Port parity, the dry run: ``repro_torch.launch.dryrun`` against
+``repro.launch.dryrun`` on ``tests/test_parallel.py::test_dryrun_cli_small_mesh``'s
+case, olmoe-1b-7b at ``decode_32k`` on a ``(2, 2)`` ``("data", "model")``
+mesh (``repro``: four forced host devices, in a subprocess; the port:
+``meta`` devices, nothing allocated), then the port's CLI on the
+production mesh, and the H100 constants.
+
+Tolerances: the port's per-device matmul FLOPs within 1 % of ``repro``'s
+``analyze_hlo`` (``tests/test_torch_zoo.py``'s tolerance); every position's
+matmul FLOPs equal; the result dicts' keys equal. Bytes are not gated:
+eager PyTorch fuses nothing, so the port counts more HBM traffic than XLA's
+fused module (``core/step_analysis.py``).
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+pytest.importorskip("jax")
+
+from repro_torch.launch import dryrun as tdry
+from repro_torch.launch import mesh as tmesh
+from repro_torch.runtime.telemetry import MeasurementStore
+
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+META = torch.device("meta")
+ARCH, SHAPE = "olmoe-1b-7b", "decode_32k"
+FLOPS_RTOL = 0.01
+
+
+def _keys(d, prefix=""):
+    out = set()
+    for k, v in d.items():
+        out.add(prefix + k)
+        if isinstance(v, dict) and k in ("xla_cost_analysis", "memory", "roofline",
+                                          "collectives"):
+            out |= {prefix + k + "." + kk for kk in v}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_dry():
+    code = textwrap.dedent(f"""
+        import json
+        from repro.launch import mesh as mesh_mod
+        from repro.launch.dryrun import lower_one
+        mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
+        print("DRY", json.dumps(lower_one({ARCH!r}, {SHAPE!r}, mesh)))
+    """)
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=560)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("DRY "))
+    return json.loads(line[4:])
+
+
+@pytest.fixture(scope="module")
+def port_dry():
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"), [META] * 4)
+    return tdry.lower_one(ARCH, SHAPE, mesh, with_stats=True)
+
+
+def test_dryrun_small_mesh_matches_repro(jax_dry, port_dry):
+    """The gate case on both packages: the same result keys, a positive
+    temp size, non-negative roofline terms, per-device matmul FLOPs within
+    1 % of ``repro``'s, every position's equal, and collectives with
+    all-reduce bytes counted twice (the ring factor)."""
+    got, stats = port_dry
+    assert _keys(got) == _keys(jax_dry)
+    assert got["memory"]["temp_bytes"] > 0 and got["roofline"]["compute_s"] >= 0
+    assert all(v >= 0 for v in got["roofline"].values())
+    assert abs(got["hlo_flops"] - jax_dry["hlo_flops"]) <= FLOPS_RTOL * jax_dry["hlo_flops"]
+    per = stats.per_position_flops
+    assert sorted(per) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert len(set(per.values())) == 1
+    coll = got["collectives"]
+    assert coll["total_bytes"] > 0
+    assert coll["total_bytes"] == pytest.approx(
+        2 * coll["bytes"]["all-reduce"] + coll["bytes"].get("all-gather", 0.0))
+    assert got["while_trips"] == [] and got["compile_s"] == 0.0
+    assert got["mesh"] == "2x2" and got["n_chips"] == 4 and got["kind"] == "decode"
+    assert (got["params"], got["active_params"]) == (jax_dry["params"], jax_dry["active_params"])
+    assert got["dominant"] in got["roofline"]
+
+
+def test_dryrun_main_writes_results_and_telemetry(tmp_path):
+    """``main`` on the production mesh (32 x 8, traced as one row of the
+    data axis) writes a JSON list that ``benchmarks/roofline.py`` reads, and
+    ``--telemetry-dir`` appends one ``StepRecord`` with ``launcher:
+    "dryrun"``."""
+    from benchmarks import roofline
+    out, telem = tmp_path / "dry.json", tmp_path / "telem"
+    rc = tdry.main(["--arch", ARCH, "--shape", SHAPE, "--out", str(out),
+                    "--telemetry-dir", str(telem)])
+    assert rc == 0
+    rows = roofline.load_results([str(out)])
+    assert len(rows) == 1 and rows[0]["ok"] and rows[0]["mesh"] == "32x8"
+    assert rows[0]["n_chips"] == 256 and rows[0]["hlo_flops"] > 0
+    assert roofline.main((str(out),))[0]["useful_ratio"] > 0
+    recs = MeasurementStore(str(telem)).records()
+    assert len(recs) == 1 and recs[0].meta["launcher"] == "dryrun"
+    assert recs[0].wall_time == max(rows[0]["roofline"].values())
+
+
+def test_production_mesh_and_h100_constants():
+    """``make_production_mesh``: (32, 8) over ``("data", "model")``, 256
+    positions; multi-pod (2, 32, 8), 512; ``meta`` by default. ``HW``: the
+    H100 SXM5 data sheet."""
+    m = tmesh.make_production_mesh()
+    assert m.axis_names == ("data", "model") and m.devices.shape == (32, 8)
+    assert m.size == 256 and all(d == META for d in m.devices.flat)
+    mp = tmesh.make_production_mesh(multi_pod=True)
+    assert mp.axis_names == ("pod", "data", "model") and mp.devices.shape == (2, 32, 8)
+    assert mp.size == 512
+    assert tmesh.HW == {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12, "ici_bw": 25e9,
+                        "links_per_chip": 18, "hbm_bytes": 80e9}
+    terms = tdry.roofline_terms(989e12, 3.35e12, 450e9, 256)
+    assert terms == pytest.approx({"compute_s": 1.0, "memory_s": 1.0, "collective_s": 1.0})

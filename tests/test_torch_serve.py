@@ -145,6 +145,9 @@ def test_port_imports_neither_jax_nor_repro():
     # observability, the replay executor and the paper zoo
     assert {"obs/trace.py", "obs/collector.py", "obs/health.py", "obs/alerts.py",
             "obs/server.py", "obs/torch_profiler.py", "exec/replay.py", "core/zoo.py"} <= scanned
+    # tensor parallelism, the dry run and the LR schedules
+    assert {"parallel/tensor.py", "launch/dryrun.py", "core/step_analysis.py",
+            "optim/schedule.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):
