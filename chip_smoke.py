@@ -20,12 +20,15 @@ Phases, each printed on lines of its own and each fatal when it fails:
            kernels at the other families' prefill shapes (flash: olmoe
            4 x 512 16/16 hd 128, jamba 32/8, musicgen 4 x 768 32/32 hd 64,
            internvl 4 x 768 48/8; SSD: jamba's 128 heads of 64, state 16),
+           and at a tensor-parallel position's shard of qwen2-1.5b (3 query
+           heads on 1 KV head) and of mamba2-130m (6 and 12 of 24 heads),
            checked in f32 and bf16 and timed in bf16 beside SDPA and the
            bound.
 4. serve   the main paths, each with every kernel count at 0 just before it,
            full width in bf16, random weights from ``--seed``, a prefill of
            4 prompts through the hand kernels (one launch a layer of the
-           kernel's mixer), then ``generate`` of 32 greedy tokens:
+           kernel's mixer), then ``generate`` of 32 greedy tokens after the
+           first 64 tokens of each prompt, stepped through decode:
            qwen2-1.5b (4 x 512, flash x 28), mamba2-130m (4 x 1024, SSD x
            24), olmoe-1b-7b (4 x 512, 64 experts top-8, flash x 16),
            jamba-v0.1-52b at one period of 8 layers (4 x 512, flash x 1, SSD
@@ -147,22 +150,31 @@ Phases, each printed on lines of its own and each fatal when it fails:
            at 2, f32, TF32 off, batch 8 x 128, the gradient of
            ``make_grad_step`` and one ``make_train_step`` under
            ``baseline_rules`` on the (2, 2) and (1, 4) meshes (parameters
-           laid out by ``parallel.tensor.shard_params``; on (1, 4) qwen's 2 KV
-           heads and mamba's packed ``in_proj`` run gathered) against one
-           device under the same rules, 1e-4, every kernel count at 0 just
-           before it (none expected); then full-width, full-depth qwen2-1.5b
-           in f32 through the flash kernel over the (2, 2) mesh: the prefill,
-           every kernel count at 0 just before it and read just after (each
-           position launches the kernel on 6 of 12 query heads and 1 of 2 KV
-           heads: 2 x 2 x 28 launches), against one device's logits within
-           2e-3, and ``generate`` against one device's tokens. Each case's
-           seconds and position 0's gathered bytes.
+           laid out by ``parallel.tensor.shard_params``; mamba's mixers split
+           by heads, and on (1, 4) qwen's 2 KV heads are replicated over
+           their groups' positions) against one device under the same rules,
+           1e-4, every kernel count at 0 just before it (none expected); then
+           full-width, full-depth models in f32 through the hand kernels, the
+           prefill of 4 prompts with every kernel count at 0 just before it
+           and read just after, each position launching its mixer's kernel
+           once a layer: qwen2-1.5b (4 x 512) over (2, 2) (6 of 12 query
+           heads on 1 KV head) and (1, 4) (3 query heads on the one KV head
+           of their group), 112 flash launches each, and over (1, 8) of
+           ``[cuda:0] * 8`` (12 query heads in 4 groups of 3, each attended
+           by 2 positions), 224 launches; mamba2-130m (4 x 1024) over (2, 2)
+           and (1, 4) (12 and 6 of 24 heads), 96 SSD launches each; each
+           against one device's logits within 2e-3, and
+           ``generate`` against one device's tokens. Each case's seconds and
+           position 0's gathered bytes.
 14. dryrun  ``launch/dryrun.py`` on ``meta`` tensors, on the host:
            ``lower_one("olmoe-1b-7b", "decode_32k")`` on a (2, 2) mesh, every
-           roofline term and the dominant one, then qwen2-1.5b x train_4k on
-           ``make_production_mesh()`` (32 x 8), its seconds, FLOPs a device,
-           collective bytes and dominant term.
-15. kernels one JSON line with every kernel's launches, error and times.
+           roofline term and the dominant one; mamba2-130m x decode_32k on
+           (2, 2) and qwen2-1.5b x decode_32k on (1, 4) and (1, 8), FLOPs a
+           device within 1 % of ``repro``'s and collective bytes a position;
+           then qwen2-1.5b x train_4k on ``make_production_mesh()`` (32 x 8),
+           its seconds, FLOPs a device, collective bytes and dominant term.
+15. kernels one JSON line with every kernel's launches (the serve paths'
+           prefills and the tp phase's), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -171,6 +183,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import re
 import shutil
@@ -238,10 +251,10 @@ DP_SEQ, DP_TOL = 128, 1e-4
 DP_CASES = ((2, 8), (4, 8), (4, 6))
 DP_SERVE_ROWS, DP_SERVE_PROMPT, DP_SERVE_GEN = (4, 3), 16, 8
 
-# tp phase: the meshes of [cuda:0] * 4 (data, model), batch rows of the
-# gradient gate (split over the data axis), the tensor-parallel prefill's
-# prompt length; the dry run's production-mesh case
-TP_MESHES, TP_ROWS, TP_PROMPT = ((2, 2), (1, 4)), 8, 512
+# tp phase: the meshes of [cuda:0] * 4 (data, model) and batch rows of the
+# gradient gate (split over the data axis); the dry run's production-mesh
+# case
+TP_MESHES, TP_ROWS = ((2, 2), (1, 4)), 8
 DRYRUN_PROD = ("qwen2-1.5b", "train_4k")
 
 QWEN, MAMBA = "qwen2-1.5b", "mamba2-130m"
@@ -253,9 +266,27 @@ SERVE_PROMPT = {QWEN: 512, MAMBA: 1024, OLMOE: 512, JAMBA: 512, MUSICGEN: 512, I
 # parameters (103 GB in bf16), does not fit one card
 SERVE_LAYERS = {JAMBA: 8}
 SERVE_BATCH, SERVE_GEN = 4, 32
+# generate steps a prompt through decode one token at a time, as repro's
+# does, a host-bound loop: the whole prompts took 127-263 s over the six
+# paths (H100 80GB HBM3, 700 W), the most of any phase, so it steps their
+# first SERVE_GEN_PROMPT tokens
+SERVE_GEN_PROMPT = 64
 PARITY_BATCH, PARITY_PROMPT = 2, 256
 # each kernel and the mixer whose layers launch it in a prefill
 MIXER_KERNEL = {"A": "flash_attention", "M": "ssd_scan"}
+# tp phase's prefills, f32 through the hand kernels at full width and depth:
+# (arch, mesh of [cuda:0] * positions, the head counts each launch must see:
+# flash (query heads, KV heads), SSD heads); the prompts are SERVE_PROMPT's.
+# (1, 8) is the production mesh's "model" axis: qwen2's 12 query heads in 4
+# groups of 3, each attended by 2 positions
+TP_SERVE = ((QWEN, (2, 2), (6, 1)), (QWEN, (1, 4), (3, 1)), (QWEN, (1, 8), (3, 1)),
+            (MAMBA, (2, 2), 12), (MAMBA, (1, 4), 6))
+# the dry run's tensor-parallel cases and repro's FLOPs a device for each
+# (launch/dryrun.py::lower_one on as many forced host devices, as
+# tests/test_torch_dryrun.py runs it), held within 1 %
+DRYRUN_TP = ((MAMBA, "decode_32k", (2, 2), 8.550482e9), (QWEN, "decode_32k", (1, 4), 2.791771e11),
+             (QWEN, "decode_32k", (1, 8), 2.297828e11))
+DRYRUN_FLOPS_RTOL = 0.01
 KERNEL_SOURCES = ("flash_attention", "ssd_scan")
 # the MoE train path (full width, 4 layers) and its card-against-CPU parity:
 # an assignment that routes otherwise on the card must be a near-tie on the
@@ -317,9 +348,16 @@ SSD_CASES = [
 # causal; S counts a frontend's 256-token prefix; G = H / KV query heads a
 # KV head (olmoe and musicgen MHA: 1)
 FLASH_FAMILY = [(OLMOE, 4, 512, 16, 16, 128), (JAMBA, 4, 512, 32, 8, 128),
-                (MUSICGEN, 4, 768, 32, 32, 64), (INTERNVL, 4, 768, 48, 8, 128)]
-# jamba's Mamba layers: (label, Bb, S, nh, hd, g, ds, chunk), state 16
-SSD_FAMILY = [(JAMBA, 4, 512, 128, 64, 1, 16, 128)]
+                (MUSICGEN, 4, 768, 32, 32, 64), (INTERNVL, 4, 768, 48, 8, 128),
+                # a position of qwen2-1.5b's tp prefill over (1, 4): 3 query
+                # heads on the one KV head of their group
+                (f"{QWEN}-tp(1,4)", 4, 512, 3, 1, 128)]
+# jamba's Mamba layers: (label, Bb, S, nh, hd, g, ds, chunk), state 16; a
+# position of mamba2-130m's tp prefill: 6 of 24 heads over (1, 4), 12 of 24
+# over (2, 2) (its 2 rows of the 4 prompts)
+SSD_FAMILY = [(JAMBA, 4, 512, 128, 64, 1, 16, 128),
+              (f"{MAMBA}-tp(1,4)", 4, 1024, 6, 64, 1, 128, 128),
+              (f"{MAMBA}-tp(2,2)", 2, 1024, 12, 64, 1, 128, 128)]
 
 
 def log(phase: str, msg: str):
@@ -854,10 +892,12 @@ def phase_serve(arch: str, seed: int) -> dict:
     torch.cuda.synchronize()
     after_prefill = read_counts()
     stats: dict = {}
-    out = serve.generate(cfg, params, prompts, SERVE_GEN, prefix=batch.get("prefix"),
+    gen_prompts = prompts[:, :SERVE_GEN_PROMPT]
+    out = serve.generate(cfg, params, gen_prompts, SERVE_GEN, prefix=batch.get("prefix"),
                          stats=stats)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    short = prefill(params, {**batch, "tokens": batch["tokens"][:, :SERVE_GEN_PROMPT]})
 
     if after_prefill != want:
         raise RuntimeError(f"prefill launched {after_prefill}, not once per layer of each "
@@ -871,13 +911,14 @@ def phase_serve(arch: str, seed: int) -> dict:
     if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or \
             not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         raise RuntimeError(f"generate gave {tuple(out.shape)} or tokens out of range")
-    agree = int((logits[:, -1].argmax(-1) == out[:, 0]).sum())
+    agree = int((short[:, -1].argmax(-1) == out[:, 0]).sum())
     decode_ms = stats["decode_s"] / stats["decode_steps"] * 1e3
     log("serve", f"{arch} prefill_ms {prefill_ms:.3f} (median of {len(times) - 1}: "
                  f"{', '.join(f'{t:.3f}' for t in times[1:])}); kernel launches in one prefill "
                  f"{after_prefill}")
     log("serve", f"{arch} generate: prompt stepped through decode in {stats['prefill_s']:.3f} s "
-                 f"({prompts.size / stats['prefill_s']:.1f} tok/s), "
+                 f"({gen_prompts.size} tokens, {gen_prompts.size / stats['prefill_s']:.1f} "
+                 f"tok/s), "
                  f"decode_ms_per_step {decode_ms:.3f}, "
                  f"{SERVE_BATCH * SERVE_GEN / stats['decode_s']:.1f} generated tok/s, "
                  f"max_memory_allocated {peak / 2**30:.3f} GiB ({resident / 2**30:.3f} GiB "
@@ -891,7 +932,8 @@ def phase_serve(arch: str, seed: int) -> dict:
                      f"its C >= 4 slots): {expert_bytes / 1e9:.3f} GB, "
                      f"{expert_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms a step at 3.35 TB/s, "
                      f"against decode_ms_per_step {decode_ms:.3f}")
-    log("serve", f"prefill argmax equals the first generated token in {agree} of "
+    log("serve", f"prefill argmax of the first {SERVE_GEN_PROMPT} tokens equals the first "
+                 f"generated token in {agree} of "
                  f"{SERVE_BATCH} rows (reported, not gated: bf16 prefill and stepped decode "
                  f"round at different places)")
     log("serve", f"kernel launches on the {arch} path: {counts}")
@@ -2629,70 +2671,109 @@ def tp_gradients(seed: int, smi: str):
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def kernel_heads():
+    """Inside, the head counts that the models hand each kernel: a dict
+    with the set of (query heads, KV heads) of the flash launches and of
+    heads of the SSD launches. The launches themselves are counted by the
+    kernels' wrappers alone."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    seen = {"flash_attention": set(), "ssd_scan": set()}
+    flash, ssd = attn_mod.gqa_flash_attention, ssm_mod.mamba_ssd
+
+    def flash_seen(q, k, v, **kw):
+        seen["flash_attention"].add((q.shape[2], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    def ssd_seen(x, *a, **kw):
+        seen["ssd_scan"].add(x.shape[2])
+        return ssd(x, *a, **kw)
+    attn_mod.gqa_flash_attention, ssm_mod.mamba_ssd = flash_seen, ssd_seen
+    try:
+        yield seen
+    finally:
+        attn_mod.gqa_flash_attention, ssm_mod.mamba_ssd = flash, ssd
+
+
 def tp_serve(seed: int, smi: str) -> dict:
-    """The tp phase's serve gate: full-width, full-depth qwen2-1.5b in f32
-    with ``attn_impl="pallas"`` over the (2, 2) mesh: the prefill step, each
-    position launching the flash kernel on its 6 of 12 query heads and 1 of
-    2 KV heads, with every kernel count at 0 just before it and read just
-    after, against one device's prefill (logits within ``PARITY_ATOL``);
-    then ``generate`` against one device's tokens. Returns the counts."""
+    """The tp phase's serve gate, each case of ``TP_SERVE``: full-width,
+    full-depth qwen2-1.5b or mamba2-130m in f32 with ``attn_impl="pallas"``
+    over a mesh of ``[cuda:0]`` repeated: the prefill step, every kernel
+    count at 0 just before it and read just after, each position launching
+    its mixer's kernel once a layer on its heads (qwen2: 6 of 12 query heads
+    on 1 KV head over (2, 2), 3 on the one KV head of their group over (1,
+    4) and over (1, 8), where 2 positions attend each group; mamba2: 12 or 6
+    of 24 heads, split by heads), against one device's prefill (logits
+    within ``PARITY_ATOL``); then ``generate`` against one device's tokens.
+    Returns the counts summed over the prefills."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import init_params
     from repro_torch.parallel import tensor as tp
-    from repro_torch.parallel.sharding import axis_rules
     dev = torch.device("cuda", 0)
-    cfg = get_config(QWEN).replace(dtype="float32", attn_impl="pallas")
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
-    rules = steps.baseline_rules(mesh_mod.make_mesh((2, 2), ("data", "model"), [dev] * 4))
-    rng = np.random.default_rng(seed)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, TP_PROMPT)),
-                             device=dev)
-    shards = tp.shard_params(cfg, params, rules)
-    prefill = steps.make_prefill_step(cfg, rules)
-    with torch.no_grad():
-        prefill(shards, {"tokens": tokens})              # warm-up, builds the kernel
-        torch.cuda.synchronize(dev)
-        reset_counts()
-        t0 = time.perf_counter()
-        logits = prefill(shards, {"tokens": tokens})
-        torch.cuda.synchronize(dev)
-        took = time.perf_counter() - t0
-        counts = read_counts()
-        with axis_rules(rules):
+    total = {name: 0 for name in KERNEL_SOURCES}
+    for arch in dict.fromkeys(a for a, _, _ in TP_SERVE):
+        cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas")
+        kernel = MIXER_KERNEL[cfg.pattern[0]]
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+        rng = np.random.default_rng(seed)
+        tokens = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT[arch])), device=dev)
+        prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, DP_SERVE_PROMPT))
+        with torch.no_grad():
             ref = steps.make_prefill_step(cfg, None)(params, {"tokens": tokens})
-    err = (logits - ref).abs().max().item()
-    want = 2 * 2 * cfg.num_layers                         # rows x positions x layers
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, DP_SERVE_PROMPT))
-    with torch.no_grad():
-        with axis_rules(rules):
             one = generate(cfg, params, prompts, DP_SERVE_GEN)
-        stats: dict = {}
-        got = generate(cfg, params, prompts, DP_SERVE_GEN, rules, stats=stats)
-    same = got.shape == one.shape and torch.equal(got, one)
-    log("tp", f"serve {QWEN} full width, {cfg.num_layers} layers, f32, attn_impl pallas, "
-              f"mesh (2, 2) of [cuda:0] * 4 ({tp.describe(tp.layout(cfg, rules))}): prefill "
-              f"{tuple(tokens.shape)} {took:.3f} s, flash launches {counts['flash_attention']} "
-              f"(rows x positions x layers = {want}, each on {cfg.num_heads // 2} of "
-              f"{cfg.num_heads} query heads and {cfg.num_kv_heads // 2} of {cfg.num_kv_heads} KV "
-              f"heads), max |logits - one device| {err:.3g} (tol {PARITY_ATOL:g}); generate "
-              f"{SERVE_BATCH} prompts of {DP_SERVE_PROMPT}, {DP_SERVE_GEN} tokens each: "
-              f"{'equal' if same else 'DIFFERENT'} (decode "
-              f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step); {smi}")
-    if counts["flash_attention"] != want or counts["ssd_scan"] or err > PARITY_ATOL or not same:
-        raise RuntimeError(f"tp serve: launches {counts} (want {want} flash), logits error "
-                           f"{err:.3g}, tokens {'equal' if same else 'different'}")
-    del params, shards
-    torch.cuda.empty_cache()
-    return counts
+        for _, shape, heads in (c for c in TP_SERVE if c[0] == arch):
+            rules = steps.baseline_rules(mesh_mod.make_mesh(shape, ("data", "model"),
+                                                            [dev] * (shape[0] * shape[1])))
+            lay = tp.layout(cfg, rules)
+            shards = tp.shard_params(cfg, params, rules)
+            prefill = steps.make_prefill_step(cfg, rules)
+            with torch.no_grad():
+                prefill(shards, {"tokens": tokens})          # warm-up, builds the kernel
+                torch.cuda.synchronize(dev)
+                with kernel_heads() as seen:
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    logits = prefill(shards, {"tokens": tokens})
+                    torch.cuda.synchronize(dev)
+                    took = time.perf_counter() - t0
+                    counts = read_counts()
+                stats: dict = {}
+                got = generate(cfg, params, prompts, DP_SERVE_GEN, rules, stats=stats)
+            err = (logits - ref).abs().max().item()
+            want = lay.grid.size * cfg.num_layers      # rows x positions x layers
+            same = got.shape == one.shape and torch.equal(got, one)
+            for name, n in counts.items():
+                total[name] += n
+            log("tp", f"serve {arch} full width, {cfg.num_layers} layers, f32, attn_impl pallas, "
+                      f"mesh {shape} of [cuda:0] * {lay.grid.size} ({tp.describe(lay)}): prefill "
+                      f"{tuple(tokens.shape)} {took:.3f} s, {kernel} launches {counts[kernel]} "
+                      f"(rows x positions x layers = {want}), heads a launch "
+                      f"{sorted(seen[kernel])} (want {heads}), max |logits - one device| "
+                      f"{err:.3g} (tol {PARITY_ATOL:g}); generate {SERVE_BATCH} prompts of "
+                      f"{DP_SERVE_PROMPT}, {DP_SERVE_GEN} tokens each: "
+                      f"{'equal' if same else 'DIFFERENT'} (decode "
+                      f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step); {smi}")
+            others = sum(n for name, n in counts.items() if name != kernel)
+            if (counts[kernel] != want or others or seen[kernel] != {heads}
+                    or not err <= PARITY_ATOL or not same):
+                raise RuntimeError(f"tp serve {arch} over {shape}: launches {counts} (want "
+                                   f"{want} {kernel}), heads {seen}, logits error {err:.3g}, "
+                                   f"tokens {'equal' if same else 'different'}")
+            del shards, logits
+        del params, ref
+        torch.cuda.empty_cache()
+    return total
 
 
 def phase_tp(seed: int, smi: str) -> dict:
     """Tensor parallelism over ``"model"`` on one card, ``[cuda:0] * 4``
     standing for the mesh's four positions: the gradient gate, then the
-    serve gate. Checks values, not speed. Returns the prefill's counts."""
+    serve gate. Checks values, not speed. Returns the prefills' counts."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     reset_counts()
@@ -2711,14 +2792,20 @@ def phase_tp(seed: int, smi: str) -> dict:
 
 def phase_dryrun(smi: str):
     """The dry run on ``meta`` tensors, on the host: ``repro``'s gate case
-    (olmoe-1b-7b x decode_32k on a (2, 2) mesh), every roofline term, then
-    one (arch, shape) on ``make_production_mesh()``."""
+    (olmoe-1b-7b x decode_32k on a (2, 2) mesh), every roofline term, the
+    tensor-parallel cases of ``DRYRUN_TP`` (FLOPs a device within 1 % of
+    ``repro``'s, every position equal), then one (arch, shape) on
+    ``make_production_mesh()``."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_mod
-    meta = [torch.device("meta")] * 4
-    for arch, shape, mesh in ((OLMOE, "decode_32k", mesh_mod.make_mesh((2, 2), ("data", "model"),
-                                                                       meta)),
-                              (DRYRUN_PROD[0], DRYRUN_PROD[1], mesh_mod.make_production_mesh())):
+    meta = torch.device("meta")
+    cases = [(OLMOE, "decode_32k", mesh_mod.make_mesh((2, 2), ("data", "model"), [meta] * 4),
+              None)]
+    cases += [(arch, shape, mesh_mod.make_mesh(grid, ("data", "model"),
+                                               [meta] * (grid[0] * grid[1])), want)
+              for arch, shape, grid, want in DRYRUN_TP]
+    cases.append((DRYRUN_PROD[0], DRYRUN_PROD[1], mesh_mod.make_production_mesh(), None))
+    for arch, shape, mesh, want in cases:
         t0 = time.perf_counter()
         r, stats = dryrun.lower_one(arch, shape, mesh, with_stats=True)
         took = time.perf_counter() - t0
@@ -2727,15 +2814,20 @@ def phase_dryrun(smi: str):
         # position's last saved tensor, so that position may count less
         log("dryrun", f"{arch} x {shape} on mesh {r['mesh']} ({r['n_chips']} GPUs): "
                       f"{took:.2f} s; FLOPs a device {r['hlo_flops']:.6e} (the traced positions' "
-                      f"{'equal' if len(per) == 1 else f'from {per[0]:.6e} to {per[-1]:.6e}'}), bytes "
-                      f"{r['hlo_bytes']:.6e}, collectives {r['collectives']['bytes']} x "
-                      f"{r['collectives']['counts']} (wire {r['collectives']['total_bytes']:.6e}"
+                      f"{'equal' if len(per) == 1 else f'from {per[0]:.6e} to {per[-1]:.6e}'}"
+                      + ("" if want is None else f"; repro {want:.6e}") + "), bytes "
+                      f"{r['hlo_bytes']:.6e}, collectives a position {r['collectives']['bytes']} "
+                      f"x {r['collectives']['counts']} (wire {r['collectives']['total_bytes']:.6e}"
                       f" B), temp {r['memory']['temp_bytes']} B; roofline "
                       f"{ {k: float(f'{v:.6g}') for k, v in r['roofline'].items()} } "
                       f"dominant {r['dominant']} (H100 data sheet constants); host of {smi}")
         if not (r["hlo_flops"] > 0 and r["memory"]["temp_bytes"] > 0
                 and r["collectives"]["total_bytes"] > 0):
             raise RuntimeError(f"dry run {arch} x {shape}: {r}")
+        if want is not None and (len(per) != 1 or
+                                 abs(r["hlo_flops"] - want) > DRYRUN_FLOPS_RTOL * want):
+            raise RuntimeError(f"dry run {arch} x {shape}: FLOPs a device {per} against "
+                               f"repro's {want:.6e}")
 
 
 def _to(tree, dev):
@@ -2829,7 +2921,9 @@ def main(argv=None) -> int:
             raise RuntimeError(f"the obs path launched a forward-only kernel: {counts}")
         phase = "tp"
         tp_counts = phase_tp(args.seed, smi)
-        log("tp", f"kernel launches of the tensor-parallel prefill: {tp_counts}")
+        for name, n in tp_counts.items():
+            by_name[name]["launches"] += n
+        log("tp", f"kernel launches of the tensor-parallel prefills: {tp_counts}")
         phase = "dryrun"
         t0 = time.perf_counter()
         phase_dryrun(smi)

@@ -2,8 +2,9 @@
 """``chip_smoke.py``'s ``tp`` and ``dryrun`` phases alone on one NVIDIA GPU:
 tensor parallelism over ``"model"`` with ``[cuda:0] * 4`` standing for the
 mesh's positions (the gradient and train-step gate on full-width models at
-4 and 2 layers, then the full-depth qwen2-1.5b prefill through the flash
-kernel and ``generate``), and the dry run on ``meta`` tensors.
+4 and 2 layers, then the full-depth prefills of qwen2-1.5b and mamba2-130m
+through the hand kernels over (2, 2) and (1, 4) and ``generate``), and the
+dry run on ``meta`` tensors.
 
     python3 scripts/tp_phase.py [--seed 0]
 

@@ -10,6 +10,13 @@ plain version on the CPU. Decode is the O(1) recurrent state update.
 
 State layout: h (B, nheads, head_dim, d_state) in f32; conv ring
 (B, K-1, conv_ch) in the config's dtype.
+
+Under tensor parallelism a mixer splits by heads (``parallel/tensor.py``):
+each shard runs ``mixer_in`` (or ``decode_in``) over its columns, the
+shards' ``B|C`` are gathered, each runs ``mixer_scan`` (``decode_state``)
+over its heads and ``gate``, the sums of squares are summed over the
+shards, and ``mixer_out`` gives each shard's partial of the output. The
+one-device mixer is the same steps with one shard.
 """
 from __future__ import annotations
 
@@ -36,11 +43,6 @@ def ssm_defs(cfg) -> dict:
         "norm": ParamDef((di,), ("ssm_inner",), init="ones"),
         "out_proj": ParamDef((di, D), ("ssm_inner", "embed")),
     }
-
-
-def _split_proj(cfg, zxbcdt):
-    di, ds, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
-    return torch.split(zxbcdt, [di, di + 2 * g * ds, cfg.ssm_nheads], dim=-1)
 
 
 def _causal_conv(xbc, w, b):
@@ -108,29 +110,89 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_fwd(cfg, p, u):
-    """Full-sequence Mamba-2 mixer. u: (B, S, D) -> (y, final_state)."""
-    B, S, _ = u.shape
-    di, ds, g, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads
-    z, xbc, dt = _split_proj(cfg, u @ p["in_proj"])
+def shard_widths(cfg, m: int = 1) -> tuple:
+    """A shard's widths of the packed columns ``[z | x | B|C | dt]`` of
+    ``in_proj``, one of ``m`` split by heads: (d_inner / m, 2·g·ds / m,
+    nheads / m); ``m`` 1 is the whole layer."""
+    return (cfg.d_inner // m, 2 * cfg.ssm_ngroups * cfg.ssm_state // m, cfg.ssm_nheads // m)
+
+
+def packed_segments(cfg) -> dict:
+    """The segments of each packed leaf's split dim, in order: a shard of a
+    mixer split by heads holds ``1 / m`` of each, its heads' ``z``, ``x`` and
+    ``dt`` columns and its share of ``B|C`` (``parallel/tensor.py``)."""
+    di, bc, nh = shard_widths(cfg)
+    return {"in_proj": (di, di, bc, nh), "conv_w": (di, bc), "conv_b": (di, bc)}
+
+
+def _head_groups(t, first: int, n: int, nh: int):
+    """``t`` (..., g, ds) cut to the groups that heads ``[first, first + n)``
+    of ``nh`` read, so that head ``i`` of the ``n`` reads group ``i // (n //
+    g')`` of the result, as the scans index groups."""
+    rep = nh // t.shape[-2]
+    lo, hi = first // rep, (first + n - 1) // rep + 1
+    if hi - lo == 1 or (first % rep == 0 and n % rep == 0):
+        return t[..., lo:hi, :]
+    return t.repeat_interleave(rep, dim=-2)[..., first:first + n, :]
+
+
+def mixer_in(cfg, p, u, m: int = 1):
+    """The in-projection and causal conv of a mixer, or of one of ``m``
+    shards split by heads (``p`` its columns of ``in_proj`` and channels of
+    the conv, as ``packed_segments``). u: (B, S, D). Returns (z, x, bc, dt):
+    x and bc after the conv, bc this shard's share of ``B|C``."""
+    di, bc, nh = shard_widths(cfg, m)
+    z, xbc, dt = torch.split(u @ p["in_proj"], [di, di + bc, nh], dim=-1)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    # views of xbc: the kernel reads them in place
-    x, Bm, Cm = torch.split(xbc, [di, g * ds, g * ds], dim=-1)
-    x = x.reshape(B, S, nh, cfg.ssm_head_dim)
-    Bm = Bm.reshape(B, S, g, ds)
-    Cm = Cm.reshape(B, S, g, ds)
+    x, bc = torch.split(xbc, [di, bc], dim=-1)
+    return z, x, bc, dt
+
+
+def mixer_scan(cfg, p, x, bc, dt, m: int = 1, j: int = 0):
+    """The SSD scan over the heads of shard ``j`` of ``m``: x (B, S, di / m)
+    its heads' channels, bc (B, S, 2·g·ds) the whole ``B|C``, dt its heads'
+    raw steps. Returns (y (B, S, di / m) with the D skip, final state h)."""
+    B, S = x.shape[:2]
+    ds, g, nh, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads, cfg.ssm_head_dim
+    n = nh // m
+    # views of the conv's output: the kernel reads them in place
+    x = x.reshape(B, S, n, hd)
+    Bm, Cm = torch.split(bc, [g * ds, g * ds], dim=-1)
+    Bm = _head_groups(Bm.reshape(B, S, g, ds), j * n, n, nh)
+    Cm = _head_groups(Cm.reshape(B, S, g, ds), j * n, n, nh)
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"].float())
     if cfg.attn_impl == "pallas":
         y, h = mamba_ssd(x, dt, A, Bm, Cm, p["D_skip"], chunk=cfg.ssm_chunk)
     elif cfg.attn_impl == "jnp":
-        rep = nh // g
+        rep = n // Bm.shape[2]
         y, h = ssd_chunked(x, dt, A, Bm.repeat_interleave(rep, dim=2),
                            Cm.repeat_interleave(rep, dim=2), cfg.ssm_chunk)
         y = y + x * p["D_skip"][None, None, :, None]
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    y = y.reshape(B, S, di)
+    return y.reshape(B, S, n * hd), h
+
+
+def gate(y, z):
+    """A shard's gated norm input ``y · silu(z)`` and the f32 sum of its
+    squares over the shard's channels (B, S, 1)."""
+    yz = y * F.silu(z)
+    return yz, torch.sum(yz.float() ** 2, dim=-1, keepdim=True)
+
+
+def mixer_out(cfg, p, yz, sumsq):
+    """The gated RMSNorm over the whole ``d_inner``, from ``sumsq`` summed
+    over every shard, then the shard's rows of ``out_proj``: its partial of
+    the mixer's output."""
+    y = yz.float() * torch.rsqrt(sumsq / cfg.d_inner + cfg.norm_eps)
+    return (y * p["norm"].float()).to(yz.dtype) @ p["out_proj"]
+
+
+def mamba_fwd(cfg, p, u):
+    """Full-sequence Mamba-2 mixer. u: (B, S, D) -> (y, final_state)."""
+    z, x, bc, dt = mixer_in(cfg, p, u)
+    y, h = mixer_scan(cfg, p, x, bc, dt)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     return y @ p["out_proj"], h
 
@@ -148,33 +210,52 @@ SSM_CACHE_AXES = {"h": ("batch", "ssm_heads", None, None),
                   "conv": ("batch", None, "ssm_inner")}
 
 
-def mamba_decode(cfg, p, u, cache):
-    """One-token recurrent step. u: (B, 1, D). Returns (out (B, 1, D), cache).
-
-    ``cache["h"]`` and ``cache["conv"]`` are updated in place, where the JAX
-    version returns a new cache.
-    """
-    B = u.shape[0]
-    di, ds, g, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads
-    hd = cfg.ssm_head_dim
-    z, xbc, dt = _split_proj(cfg, u[:, 0] @ p["in_proj"])           # (B, ...)
+def decode_in(cfg, p, u, cache, m: int = 1):
+    """``mixer_in`` of one token u (B, 1, D) against the conv ring of
+    ``cache`` (a shard's channels, as its ``conv_w``), which is updated in
+    place. Returns (z, x, bc, dt), each (B, 1, ...)."""
+    di, bc, nh = shard_widths(cfg, m)
+    z, xbc, dt = torch.split(u @ p["in_proj"], [di, di + bc, nh], dim=-1)
     # a new tensor: the ring below is overwritten from it
-    window = torch.cat([cache["conv"], xbc[:, None]], dim=1)       # (B, K, C)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])
+    window = torch.cat([cache["conv"], xbc], dim=1)                 # (B, K, C)
+    conv = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])
     cache["conv"].copy_(window[:, 1:])
-    x, Bm, Cm = torch.split(conv_out, [di, g * ds, g * ds], dim=-1)
-    x = x.reshape(B, nh, hd)
-    rep = nh // g
-    Bm = Bm.reshape(B, g, ds).repeat_interleave(rep, dim=1)          # (B, nh, ds)
-    Cm = Cm.reshape(B, g, ds).repeat_interleave(rep, dim=1)
-    dt = F.softplus(dt.float() + p["dt_bias"])                      # (B, nh)
+    x, bc = torch.split(conv[:, None], [di, bc], dim=-1)
+    return z, x, bc, dt
+
+
+def decode_state(cfg, p, x, bc, dt, cache, m: int = 1, j: int = 0):
+    """The recurrent step of shard ``j``'s heads (``mixer_scan`` of one
+    token): ``cache["h"]`` (its heads) is updated in place. Returns y (B, 1,
+    di / m)."""
+    B = x.shape[0]
+    ds, g, nh, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_nheads, cfg.ssm_head_dim
+    n = nh // m
+    x = x.reshape(B, n, hd)
+    Bm, Cm = torch.split(bc[:, 0], [g * ds, g * ds], dim=-1)
+    Bm = _head_groups(Bm.reshape(B, g, ds), j * n, n, nh)
+    Cm = _head_groups(Cm.reshape(B, g, ds), j * n, n, nh)
+    rep = n // Bm.shape[1]
+    Bm = Bm.repeat_interleave(rep, dim=1)                            # (B, n, ds)
+    Cm = Cm.repeat_interleave(rep, dim=1)
+    dt = F.softplus(dt[:, 0].float() + p["dt_bias"])                # (B, n)
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A)
     h = cache["h"] * dA[..., None, None] + torch.einsum(
         "bhd,bhs->bhds", (x * dt[..., None]).float(), Bm.float())
     cache["h"].copy_(h)
     y = torch.einsum("bhs,bhds->bhd", Cm.float(), h)
-    y = y.to(u.dtype) + x * p["D_skip"][None, :, None]
-    y = y.reshape(B, di)
+    y = y.to(x.dtype) + x * p["D_skip"][None, :, None]
+    return y.reshape(B, 1, n * hd)
+
+
+def mamba_decode(cfg, p, u, cache):
+    """One-token recurrent step. u: (B, 1, D). Returns (out (B, 1, D), cache).
+
+    ``cache["h"]`` and ``cache["conv"]`` are updated in place, where the JAX
+    version returns a new cache.
+    """
+    z, x, bc, dt = decode_in(cfg, p, u, cache)
+    y = decode_state(cfg, p, x, bc, dt, cache)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return (y @ p["out_proj"])[:, None], cache
+    return y @ p["out_proj"], cache

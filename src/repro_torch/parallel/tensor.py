@@ -14,32 +14,52 @@ Each position runs its own program, as one device of ``repro``'s SPMD
 program does: the residual stream is a list with one copy a position, and a
 layer runs in one of two modes.
 
-* **split**, where each position's columns are whole units: attention whose
-  ``H`` query heads and ``KV`` heads both divide over the axis (whole heads
-  in whole GQA groups), a dense MLP (a contiguous range of ``mlp``), an MoE
-  layer over ``experts``, the embedding and the head over ``vocab``. The
-  position computes its share from its stream copy: attention over its heads
-  (``models/attention.py::attention`` with ``shard_config``) and the rows of
-  ``wo`` that belong to them, the MLP over its columns of ``w_gate`` and
-  ``w_up`` and rows of ``w_down``, its experts' products
-  (``models/moe.py::expert_ffn``) after every position routed the same way
-  from the router's logits gathered in shard order, its vocabulary range of
-  the embedding (zeros elsewhere). ``reduce_partial`` sums the shares in
-  shard order, in f32, and each position takes a copy. The head's logit
-  columns are gathered in shard order before the CE, which stays
-  ``repro``'s.
-* **gathered**, otherwise: the layer's split leaves are gathered in shard
-  order (an all-gather) and every position computes the whole layer, as a
-  replicated layer runs. Under ``baseline_rules`` this is every Mamba-2
-  layer (its packed ``in_proj`` ``[z | xBC | dt]`` columns and the gated
-  norm over ``d_inner`` do not split into whole heads: reduced mamba2-130m's
-  552 columns cut at 276 on 2 positions, inside ``x``), attention where the
-  heads do not divide (qwen2-1.5b's 2 KV heads over 4 or 8 positions,
-  reduced qwen2-1.5b's 6 query heads over 4), and any leaf that other rules
-  put on the axis outside these patterns (norms with ``embed`` on the axis).
-  A gathered layer of the decode step gathers the cache leaves that the
-  axis splits before the step and writes each position's slice back after
-  it.
+* **split**, where ``logical_spec`` puts every leaf the split needs on the
+  axis: attention, a Mamba-2 mixer, a dense MLP (a contiguous range of
+  ``mlp``), an MoE layer over ``experts``, the embedding and the head over
+  ``vocab``. The position computes its share from its stream copy:
+
+  - attention from its contiguous columns of ``wq``, ``wk``, ``wv`` and
+    rows of ``wo`` (``models/attention.py::head_shard``). The query heads
+    form ``gcd(H, m)`` groups; where ``H`` divides, a position's columns
+    are whole heads of one group, else each group is attended by every
+    position holding its columns, from q's columns all-gathered, and each
+    applies its ``wo`` rows to its columns of the group's output
+    (qwen2-1.5b's 12 heads over 8 positions: 4 groups of 3 on 2 positions
+    each). Where the ``KV`` heads divide, a position's K/V columns are the
+    whole KV heads of its group; where they do not (qwen2-1.5b's 2 over 4
+    or 8), the K and V columns are all-gathered and a group attends with
+    its KV heads, and the decode cache holds every KV head, as
+    ``cache_shardings`` leaves it whole;
+  - a Mamba-2 mixer by heads: position ``j`` holds, of each packed leaf,
+    ``1 / m`` of each segment (``ssm.packed_segments``: its heads' ``z``,
+    ``x`` and ``dt`` columns of ``in_proj`` and its share of ``B|C``, the
+    same channels of ``conv_w``/``conv_b``), and its heads' rows of
+    ``norm`` and ``out_proj`` and entries of ``A_log``, ``dt_bias``,
+    ``D_skip``: exactly ``1 / m`` of each leaf, as ``repro``'s contiguous
+    shard. It projects and convolves its channels, the convolved ``B|C``
+    is all-gathered, it scans its heads, the gated RMSNorm's sums of
+    squares are all-reduced, and its ``out_proj`` rows give its partial.
+    The decode cache's SSM state is split by heads (``SSM_CACHE_AXES``)
+    and its conv ring follows ``conv_w``'s channels;
+  - the MLP over its columns of ``w_gate`` and ``w_up`` and rows of
+    ``w_down``, its experts' products (``models/moe.py::expert_ffn``) after
+    every position routed the same way from the router's logits gathered
+    in shard order, its vocabulary range of the embedding (zeros
+    elsewhere).
+
+  ``reduce_partial`` sums the shares in shard order, in f32, and each
+  position takes a copy. The head's logit columns are gathered in shard
+  order before the CE, which stays ``repro``'s.
+* **gathered**, where ``logical_spec`` replicates a leaf the split needs
+  (rules that take a dim off the axis, or a dim that does not divide): the
+  layer's split leaves are gathered in shard order (an all-gather) and
+  every position computes the whole layer, as a replicated layer runs; so
+  do leaves that other rules put on the axis outside these patterns (norms
+  with ``embed`` on the axis), and attention whose head groups would span
+  part of two KV groups. A gathered layer of the decode step gathers the
+  cache leaves that the axis splits before the step and writes each
+  position's slice back after it.
 
 The gradient of a split leaf is summed over the rows (``all_reduce``); that
 of a leaf every position holds whole is summed over every position, since
@@ -59,6 +79,7 @@ from collections import defaultdict
 import contextlib
 import functools
 from dataclasses import dataclass
+import math
 import threading
 
 import numpy as np
@@ -83,6 +104,8 @@ _STATE = threading.local()
 _ATTN_SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
 _MLP_SPLIT = {"w_gate": 1, "w_up": 1, "w_down": 0}
 _MOE_SPLIT = {"router": 1, "w_gate": 0, "w_up": 0, "w_down": 0}
+_SSM_SPLIT = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "A_log": 0, "dt_bias": 0,
+              "D_skip": 0, "norm": 0, "out_proj": 0}
 
 
 # ------------------------------------------------------------- positions
@@ -206,13 +229,16 @@ class Layout:
     the batch axes, columns over ``axis``), ``dims`` (a tree like the
     parameters: the dim of each leaf split over ``axis``, or None) and
     ``modes`` ("split" or "gathered" for each unit: ``embed``, ``head`` and
-    ``layer{j}/mixer``, ``layer{j}/ffn``)."""
+    ``layer{j}/mixer``, ``layer{j}/ffn``) and ``segments`` (a tree like
+    ``dims``: where a position's slice of a leaf is ``1 / m`` of each of
+    several segments of the split dim, their widths, else None)."""
     cfg: object
     rules: AxisRules
     axis: str | None
     grid: np.ndarray
     dims: dict
     modes: dict
+    segments: dict | None = None
 
     @property
     def n(self) -> int:
@@ -292,6 +318,10 @@ def layout(cfg, rules: AxisRules | None) -> Layout | None:
     grid = np.transpose(mesh.devices, order).reshape(-1, mesh.shape[axis] if axis else 1)
     lay = Layout(cfg, rules, axis, grid, dims, {})
     lay.modes = _modes(lay)
+    lay.segments = _map_dims(dims, lambda d: None)
+    for j, ch in enumerate(cfg.pattern):
+        if ch == "M" and lay.modes[f"layer{j}/mixer"] == "split":
+            lay.segments["blocks"][f"layer{j}"]["mixer"].update(ssm_mod.packed_segments(cfg))
     return lay
 
 
@@ -305,9 +335,15 @@ def _modes(lay: Layout) -> dict:
     pd = lay.period_dims
     for j, ch in enumerate(cfg.pattern):
         mix = pd[f"layer{j}"]["mixer"]
-        split = (m > 1 and ch == "A" and cfg.num_heads % m == 0
-                 and cfg.num_kv_heads % m == 0 and _fits(mix, _ATTN_SPLIT))
-        modes[f"layer{j}/mixer"] = "split" if split else "gathered"
+        if ch == "A":
+            # each position's group of query heads within one KV group or
+            # over whole ones (attention.head_shard)
+            n, G = cfg.num_heads // math.gcd(cfg.num_heads, m), cfg.num_heads // cfg.num_kv_heads
+            split = _fits(mix, _ATTN_SPLIT) and (n % G == 0 or G % n == 0)
+        else:
+            # every leaf on the axis: nheads, d_inner and 2 g ds divide
+            split = _fits(mix, _SSM_SPLIT)
+        modes[f"layer{j}/mixer"] = "split" if m > 1 and split else "gathered"
         if cfg.d_ff > 0:
             ffn = pd[f"layer{j}"]["ffn"]
             want = _MOE_SPLIT if tf_mod._layer_is_moe(cfg, j) else _MLP_SPLIT
@@ -319,38 +355,68 @@ def _modes(lay: Layout) -> dict:
 
 
 def describe(lay: Layout) -> str:
-    """The units that run gathered, as one line."""
+    """The units that run gathered, and the heads a position of a split
+    attention layer attends, as one line."""
+    cfg, m = lay.cfg, lay.m
     gathered = sorted(k for k, v in lay.modes.items() if v == "gathered")
-    return f"{lay.m} positions on {lay.axis!r}; gathered: {gathered or 'none'}"
+    out = f"{m} positions on {lay.axis!r}; gathered: {gathered or 'none'}"
+    if any(ch == "A" and lay.modes[f"layer{j}/mixer"] == "split"
+           for j, ch in enumerate(cfg.pattern)):
+        sh = attn.head_shard(cfg, m, 0)
+        r = m // math.gcd(cfg.num_heads, m)
+        out += (f"; attention: {sh.cfg.num_heads} query heads on {sh.cfg.num_kv_heads} KV heads "
+                f"a position" + (f", each group's on {r} positions" if r > 1 else "")
+                + (", KV heads by group" if sh.kv is not None else ""))
+    return out
 
 
 # ------------------------------------------------------- shards of a tree
 
-def _slice(t, dim: int | None, j: int, m: int):
+def _slice(t, dim: int | None, j: int, m: int, segments=None):
+    """Position ``j``'s slice of ``t``: the ``j``-th of ``m`` equal ranges of
+    ``dim``, or of each segment of it, concatenated."""
     if dim is None:
         return t
-    w = t.shape[dim] // m
-    return t.narrow(dim, j * w, w)
+    if segments is None:
+        w = t.shape[dim] // m
+        return t.narrow(dim, j * w, w)
+    parts, off = [], 0
+    for n in segments:
+        parts.append(t.narrow(dim, off + j * (n // m), n // m))
+        off += n
+    return torch.cat(parts, dim)
 
 
-def _shard(lay: Layout, tree, dims) -> list:
+def _join(parts: list, dim: int, segments=None):
+    """The inverse of ``_slice``: the leaf from its positions' slices."""
+    if segments is None:
+        return torch.cat(parts, dim)
+    m, out, off = len(parts), [], 0
+    for n in segments:
+        out += [p.narrow(dim, off, n // m) for p in parts]
+        off += n // m
+    return torch.cat(out, dim)
+
+
+def _shard(lay: Layout, tree, dims, segs) -> list:
     """One tree a position (flat grid order) of ``tree``'s slices; a slice
     moves to the position's device, so positions on one device share it."""
     if isinstance(tree, dict):
-        per = {k: _shard(lay, tree[k], dims[k]) for k in tree}
+        per = {k: _shard(lay, tree[k], dims[k], segs[k]) for k in tree}
         return [{k: v[p] for k, v in per.items()} for p in range(lay.grid.size)]
-    cols = [_slice(tree, dims, j, lay.m) for j in range(lay.m)]
+    cols = [_slice(tree, dims, j, lay.m, segs) for j in range(lay.m)]
     return [cols[j].to(lay.grid[i, j]) for i in range(lay.n) for j in range(lay.m)]
 
 
 def shard_params(cfg, params, rules: AxisRules) -> list:
     """Each position's slice of every leaf of ``params``, as ``logical_spec``
     gives it: a list of trees in flat grid order (rows over the batch axes,
-    then the model axis). A slice is a view where the position's device is
-    the leaf's, and a replicated leaf is the leaf itself there: nothing is
-    copied that need not be."""
+    then the model axis). A contiguous slice is a view where the position's
+    device is the leaf's, and a replicated leaf is the leaf itself there;
+    the slice of a packed leaf of a split Mamba-2 mixer (``segments``) is a
+    copy of ``1 / m`` of the leaf."""
     lay = layout(cfg, rules)
-    return _shard(lay, params, lay.dims)
+    return _shard(lay, params, lay.dims, lay.segments)
 
 
 def shard_state(cfg, state: dict, rules: AxisRules) -> dict:
@@ -365,13 +431,13 @@ def gather_params(cfg, shards: list, rules: AxisRules):
     lay = layout(cfg, rules)
     dev = lay.grid[0, 0]
 
-    def rec(nodes, dims):
+    def rec(nodes, dims, segs):
         if isinstance(nodes[0], dict):
-            return {k: rec([t[k] for t in nodes], dims[k]) for k in nodes[0]}
+            return {k: rec([t[k] for t in nodes], dims[k], segs[k]) for k in nodes[0]}
         if dims is None:
             return nodes[0].to(dev)
-        return torch.cat([t.to(dev) for t in nodes[:lay.m]], dims)
-    return rec(shards, lay.dims)
+        return _join([t.to(dev) for t in nodes[:lay.m]], dims, segs)
+    return rec(shards, lay.dims, lay.segments)
 
 
 # ------------------------------------------------- the programs of a row
@@ -425,11 +491,57 @@ def _embed(lay, row, ps, batch, prefix: bool = True):
     return xs, pos, n_prefix
 
 
+def _attn_shards(lay, row, units, hs) -> list:
+    """Each position's ``(HeadShard, cols)`` of a split attention layer: the
+    columns it reads from the others, all-gathered in shard order (q where
+    the query heads do not divide over the axis, K and V where the KV heads
+    do not)."""
+    cfg, m = lay.cfg, lay.m
+    shards = [attn.head_shard(cfg, m, j) for j in range(m)]
+    cols = [{} for _ in range(m)]
+    if shards[0].q is not None:
+        qs = all_gather(_each(row, lambda p, h: attn.project_q(cfg, p, h), units, hs), -1,
+                        row.devices, row.positions)
+        for c, q in zip(cols, qs, strict=True):
+            c["q"] = q
+    if shards[0].kv is not None:
+        kvs = _each(row, lambda p, h: attn.project_kv(cfg, p, h), units, hs)
+        for name, i in (("k", 0), ("v", 1)):
+            full = all_gather([kv[i] for kv in kvs], -1, row.devices, row.positions)
+            for c, t in zip(cols, full, strict=True):
+                c[name] = t
+    return list(zip(shards, cols, strict=True))
+
+
+def _ssm_split(lay, row, units, hs, caches=None):
+    """A Mamba-2 mixer split by heads over the row's positions (the module
+    docstring): the prefill, or with ``caches`` one decode step."""
+    cfg, m = lay.cfg, lay.m
+    if caches is None:
+        ins = _each(row, lambda p, h: ssm_mod.mixer_in(cfg, p, h, m), units, hs)
+    else:
+        ins = _each(row, lambda p, h, c: ssm_mod.decode_in(cfg, p, h, c, m), units, hs, caches)
+    bcs = all_gather([i[2] for i in ins], -1, row.devices, row.positions)
+    if caches is None:
+        ys = _each(row, lambda p, i, bc, j: ssm_mod.mixer_scan(cfg, p, i[1], bc, i[3], m, j)[0],
+                   units, ins, bcs, range(m))
+    else:
+        ys = _each(row, lambda p, i, bc, c, j: ssm_mod.decode_state(cfg, p, i[1], bc, i[3], c,
+                                                                    m, j),
+                   units, ins, bcs, caches, range(m))
+    gated = _each(row, lambda y, i: ssm_mod.gate(y, i[0]), ys, ins)
+    sumsq = reduce_partial([s for _, s in gated], row.devices, row.positions)
+    parts = _each(row, lambda p, g, s: ssm_mod.mixer_out(cfg, p, g[0], s), units, gated, sumsq)
+    return reduce_partial(parts, row.devices, row.positions)
+
+
 def _mixer(lay, row, key, ch, units, dims, hs, pos):
     cfg = lay.cfg
     if lay.modes[f"{key}/mixer"] == "split":
-        scfg = attn.shard_config(cfg, lay.m)
-        parts = _each(row, lambda p, h, q: attn.attention(scfg, p, h, q)[0], units, hs, pos)
+        if ch == "M":
+            return _ssm_split(lay, row, units, hs)
+        parts = _each(row, lambda p, h, q, sc: attn.attention(sc[0].cfg, p, h, q, *sc)[0],
+                      units, hs, pos, _attn_shards(lay, row, units, hs))
         return reduce_partial(parts, row.devices, row.positions)
     full = _gather_unit(row, units, dims)
     if ch == "A":
@@ -592,7 +704,8 @@ def init_cache_shards(lay: Layout, rows: int, seq_len: int) -> list:
     """Each position's decode cache (flat grid order) for ``rows`` rows of a
     ``seq_len`` sequence: the leaves that ``cache_shardings`` puts on the
     axis (``kv_heads``, ``ssm_heads``, ``ssm_inner``) split, zeros on the
-    position's device."""
+    position's device. The conv ring of a Mamba-2 mixer split by heads
+    holds the channels of the position's ``conv_w`` (``_ssm_split``)."""
     full = model_mod.cache_specs(lay.cfg, rows, seq_len)
     dims = _cache_dims(lay, full)
 
@@ -612,9 +725,11 @@ def init_cache_shards(lay: Layout, rows: int, seq_len: int) -> list:
 def _decode_mixer(lay, row, key, ch, units, dims, hs, caches, cdims, pos: int):
     cfg = lay.cfg
     if lay.modes[f"{key}/mixer"] == "split":
-        scfg = attn.shard_config(cfg, lay.m)
-        parts = _each(row, lambda p, h, c: attn.decode_attention(scfg, p, h, c, pos)[0],
-                      units, hs, caches)
+        if ch == "M":
+            return _ssm_split(lay, row, units, hs, caches)
+        parts = _each(row, lambda p, h, c, sc: attn.decode_attention(sc[0].cfg, p, h, c, pos,
+                                                                     *sc)[0],
+                      units, hs, caches, _attn_shards(lay, row, units, hs))
         return reduce_partial(parts, row.devices, row.positions)
     full = _gather_unit(row, units, dims)
     # the cache leaves the axis splits, whole on each position for the step

@@ -36,6 +36,9 @@ CASES = {
     "short_S40": (2, 40, 4, 2, 64, True, 0),
     "window_hd16": (1, 256, 4, 2, 16, True, 48),
     "window_hd128": (1, 320, 6, 2, 128, True, 100),
+    # a tensor-parallel shard of qwen2-1.5b over 4 positions of "model": 3
+    # query heads on the one KV head of their group
+    "tp_shard_H3_KV1": (4, 512, 3, 1, 128, True, 0),
 }
 
 
@@ -87,6 +90,10 @@ SSD_CASES = {
     "hdslice24": (2, 256, 4, 24, 2, 64, 128),
     "hdslice48": (2, 256, 4, 48, 2, 64, 128),
     "nh24_g1": (2, 512, 24, 64, 1, 128, 128),
+    # tensor-parallel shards of mamba2-130m's mixer: 6 of 24 heads on a
+    # (1, 4) mesh, 12 on a (2, 2) mesh (2 rows of the 4)
+    "tp_shard_nh6": (4, 1024, 6, 64, 1, 128, 128),
+    "tp_shard_nh12": (2, 1024, 12, 64, 1, 128, 128),
 }
 
 

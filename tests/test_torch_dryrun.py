@@ -3,13 +3,20 @@
 case, olmoe-1b-7b at ``decode_32k`` on a ``(2, 2)`` ``("data", "model")``
 mesh (``repro``: four forced host devices, in a subprocess; the port:
 ``meta`` devices, nothing allocated), then the port's CLI on the
-production mesh, and the H100 constants.
+production mesh, and the H100 constants. The tensor-parallel cases follow
+(``TP_CASES``): mamba2-130m x decode_32k on (2, 2), whose Mamba-2 mixers
+split by heads; qwen2-1.5b x decode_32k on (1, 4), whose 2 KV heads are
+replicated over their groups' positions, and on (1, 8) (``repro`` on 8
+forced host devices), where its 12 query heads attend in 4 groups of 3,
+each on 2 positions, as on the production mesh's 8.
 
 Tolerances: the port's per-device matmul FLOPs within 1 % of ``repro``'s
 ``analyze_hlo`` (``tests/test_torch_zoo.py``'s tolerance); every position's
-matmul FLOPs equal; the result dicts' keys equal. Bytes are not gated:
-eager PyTorch fuses nothing, so the port counts more HBM traffic than XLA's
-fused module (``core/step_analysis.py``).
+matmul FLOPs equal; the result dicts' keys equal; for ``TP_CASES`` the
+port's collective wire bytes at most ``COLL_FACTOR`` times ``repro``'s (a
+layer that ran gathered moved 60.6x and 3.9x). Bytes are not gated
+otherwise: eager PyTorch fuses nothing, so the port counts more HBM
+traffic than XLA's fused module (``core/step_analysis.py``).
 """
 import json
 import os
@@ -23,6 +30,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 pytest.importorskip("jax")
 
+from repro_torch.configs import get_config
 from repro_torch.launch import dryrun as tdry
 from repro_torch.launch import mesh as tmesh
 from repro_torch.runtime.telemetry import MeasurementStore
@@ -31,6 +39,9 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 META = torch.device("meta")
 ARCH, SHAPE = "olmoe-1b-7b", "decode_32k"
 FLOPS_RTOL = 0.01
+TP_CASES = [("mamba2-130m", "decode_32k", (2, 2)), ("qwen2-1.5b", "decode_32k", (1, 4)),
+            ("qwen2-1.5b", "decode_32k", (1, 8))]
+COLL_FACTOR = 5.0
 
 
 def _keys(d, prefix=""):
@@ -43,22 +54,41 @@ def _keys(d, prefix=""):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_dry():
+def _jax_lower(arch, shape, mesh_shape) -> subprocess.Popen:
+    """``repro``'s ``lower_one`` of one case on as many forced host devices
+    as the mesh has, in a subprocess that prints ``DRY <json>``."""
     code = textwrap.dedent(f"""
         import json
         from repro.launch import mesh as mesh_mod
         from repro.launch.dryrun import lower_one
-        mesh = mesh_mod.make_mesh((2, 2), ("data", "model"))
-        print("DRY", json.dumps(lower_one({ARCH!r}, {SHAPE!r}, mesh)))
+        mesh = mesh_mod.make_mesh({mesh_shape!r}, ("data", "model"))
+        print("DRY", json.dumps(lower_one({arch!r}, {shape!r}, mesh)))
     """)
-    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+    n = mesh_shape[0] * mesh_shape[1]
+    env = dict(os.environ, XLA_FLAGS=f"--xla_force_host_platform_device_count={n}",
                PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         env=env, timeout=560)
-    assert out.returncode == 0, out.stderr[-2000:]
-    line = next(ln for ln in out.stdout.splitlines() if ln.startswith("DRY "))
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _result(proc: subprocess.Popen) -> dict:
+    stdout, stderr = proc.communicate(timeout=560)
+    assert proc.returncode == 0, stderr[-2000:]
+    line = next(ln for ln in stdout.splitlines() if ln.startswith("DRY "))
     return json.loads(line[4:])
+
+
+@pytest.fixture(scope="module")
+def jax_dry():
+    return _result(_jax_lower(ARCH, SHAPE, (2, 2)))
+
+
+@pytest.fixture(scope="module")
+def jax_tp_dry():
+    """``repro``'s results of ``TP_CASES``, the subprocesses started
+    together."""
+    procs = {c: _jax_lower(*c) for c in TP_CASES}
+    return {c: _result(p) for c, p in procs.items()}
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +118,42 @@ def test_dryrun_small_mesh_matches_repro(jax_dry, port_dry):
     assert got["mesh"] == "2x2" and got["n_chips"] == 4 and got["kind"] == "decode"
     assert (got["params"], got["active_params"]) == (jax_dry["params"], jax_dry["active_params"])
     assert got["dominant"] in got["roofline"]
+
+
+@pytest.mark.parametrize("case", TP_CASES, ids=[f"{a}-{s}-{m[0]}x{m[1]}" for a, s, m in TP_CASES])
+def test_dryrun_tensor_parallel_matches_repro(jax_tp_dry, case):
+    """The layers that ``repro``'s program splits over ``"model"`` split in
+    the port's too: mamba2-130m's mixers by heads (the convolved ``B|C``
+    and the norm's sums of squares the only new collectives), qwen2-1.5b's
+    attention with its 2 KV heads replicated over their groups (the K and V
+    columns gathered) and, on 8 positions, its query heads in groups (q's
+    columns gathered too). FLOPs a device within 1 % of ``repro``'s, every
+    position's equal, collective wire bytes at most ``COLL_FACTOR`` times
+    ``repro``'s."""
+    arch, shape, mesh_shape = case
+    want = jax_tp_dry[case]
+    m = mesh_shape[1]
+    mesh = tmesh.make_mesh(mesh_shape, ("data", "model"), [META] * (mesh_shape[0] * m))
+    got, stats = tdry.lower_one(arch, shape, mesh, with_stats=True)
+    assert abs(got["hlo_flops"] - want["hlo_flops"]) <= FLOPS_RTOL * want["hlo_flops"], (
+        got["hlo_flops"], want["hlo_flops"])
+    per = stats.per_position_flops
+    assert len(per) == mesh_shape[0] * m and len(set(per.values())) == 1, per
+    coll = got["collectives"]
+    assert 0 < coll["total_bytes"] <= COLL_FACTOR * want["collectives"]["total_bytes"], (
+        coll, want["collectives"])
+    # position 0's collectives, a layer: mamba gathers its B|C and
+    # all-reduces the norm's sums of squares and its out_proj partials;
+    # qwen gathers K and V (and q where its heads do not divide) and
+    # all-reduces the wo and MLP partials; beside them the embedding's
+    # all-reduce and the logits' all-gather
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    if arch == "mamba2-130m":
+        gathers, reduces = L, 2 * L
+    else:
+        gathers, reduces = (2 + (cfg.num_heads % m != 0)) * L, 2 * L
+    assert coll["counts"] == {"all-gather": gathers + 1, "all-reduce": reduces + 1}
 
 
 def test_dryrun_main_writes_results_and_telemetry(tmp_path):
