@@ -166,15 +166,32 @@ Phases, each printed on lines of its own and each fatal when it fails:
            against one device's logits within 2e-3, and
            ``generate`` against one device's tokens. Each case's seconds and
            position 0's gathered bytes.
-14. dryrun  ``launch/dryrun.py`` on ``meta`` tensors, on the host:
+14. fsdp    parameters split over the batch axes (FSDP), ``[cuda:0] * 4``
+           again: full-width qwen2-1.5b at 4 layers with ``embed=data`` and
+           olmoe-1b-7b at 2 with ``expert_embed=data``, f32, TF32 off, the
+           gradient and one train step over (2, 2) and (4, 1) against one
+           device, 1e-4, no kernel launch; then full-depth qwen2-1.5b in f32
+           through the flash kernel with ``embed=data`` over (2, 2): the
+           prefill with every kernel count at 0 just before it, 112 launches
+           (rows x positions x layers), logits within 2e-3 of one device,
+           ``generate``'s tokens equal. Each case's seconds and position 0's
+           gathered and reduce-scattered bytes.
+15. dryrun  ``launch/dryrun.py`` on ``meta`` tensors, on the host, in a
+           process of its own started after the build and read here:
            ``lower_one("olmoe-1b-7b", "decode_32k")`` on a (2, 2) mesh, every
            roofline term and the dominant one; mamba2-130m x decode_32k on
            (2, 2) and qwen2-1.5b x decode_32k on (1, 4) and (1, 8), FLOPs a
            device within 1 % of ``repro``'s and collective bytes a position;
-           then qwen2-1.5b x train_4k on ``make_production_mesh()`` (32 x 8),
-           its seconds, FLOPs a device, collective bytes and dominant term.
-15. kernels one JSON line with every kernel's launches (the serve paths'
-           prefills and the tp phase's), error and times.
+           the (2, 2) cases of ``DRYRUN_FSDP`` (parameters over ``"data"``,
+           and the train program at full depth), FLOPs within 1 % and
+           argument bytes within 1 % of ``repro``'s; qwen2-1.5b x train_4k
+           on ``make_production_mesh()`` (32 x 8), its seconds, FLOPs a
+           device, collective bytes and dominant term; and olmoe-1b-7b x
+           train_4k there with and without ``expert_embed=data``: FSDP's
+           all-gathers and reduce-scatters recorded, a device's argument
+           bytes lower.
+16. kernels one JSON line with every kernel's launches (the serve paths'
+           prefills and the tp and fsdp phases'), error and times.
 
 The last line is ``{"ok": true, "device": {...}}``, printed only when every
 phase passed. Imports nothing of JAX or of the JAX package ``repro``.
@@ -279,14 +296,45 @@ MIXER_KERNEL = {"A": "flash_attention", "M": "ssd_scan"}
 # flash (query heads, KV heads), SSD heads); the prompts are SERVE_PROMPT's.
 # (1, 8) is the production mesh's "model" axis: qwen2's 12 query heads in 4
 # groups of 3, each attended by 2 positions
-TP_SERVE = ((QWEN, (2, 2), (6, 1)), (QWEN, (1, 4), (3, 1)), (QWEN, (1, 8), (3, 1)),
-            (MAMBA, (2, 2), 12), (MAMBA, (1, 4), 6))
+TP_SERVE = ((QWEN, (2, 2), (6, 1), None), (QWEN, (1, 4), (3, 1), None),
+            (QWEN, (1, 8), (3, 1), None), (MAMBA, (2, 2), 12, None), (MAMBA, (1, 4), 6, None))
+# fsdp phase: parameters split over "data" (FSDP, or ZeRO-3). The gradient
+# gate's (arch, depth, rule overrides) over each mesh of [cuda:0] * 4
+# ((4, 1): ZeRO-3 without tensor parallelism), then the serve gate as
+# TP_SERVE's, at full depth
+FSDP_GRADS = ((QWEN, 4, {"embed": "data"}), (OLMOE, 2, {"expert_embed": "data"}))
+FSDP_MESHES = ((2, 2), (4, 1))
+FSDP_SERVE = ((QWEN, (2, 2), (6, 1), {"embed": "data"}),)
 # the dry run's tensor-parallel cases and repro's FLOPs a device for each
 # (launch/dryrun.py::lower_one on as many forced host devices, as
 # tests/test_torch_dryrun.py runs it), held within 1 %
 DRYRUN_TP = ((MAMBA, "decode_32k", (2, 2), 8.550482e9), (QWEN, "decode_32k", (1, 4), 2.791771e11),
              (QWEN, "decode_32k", (1, 8), 2.297828e11))
 DRYRUN_FLOPS_RTOL = 0.01
+# the dry run's (2, 2) cases with parameters split over "data", and the
+# tensor-parallel train program: (arch, shape, rule overrides, layers or None
+# for full depth, repro's FLOPs a device, repro's argument bytes a device),
+# from repro's lower_one on 4 forced host devices, as
+# tests/test_torch_dryrun.py runs it; FLOPs within DRYRUN_FLOPS_RTOL,
+# argument bytes within DRYRUN_ARG_RTOL. mamba2-130m trains at 2 layers: at
+# full depth the port's trace takes minutes on a host
+DRYRUN_FSDP = (
+    (OLMOE, "decode_32k", {"expert_embed": "data"}, None, 2.386559e11, 141_136_892_164),
+    (QWEN, "decode_32k", {"embed": "data"}, None, 2.791771e11, 30_836_700_932),
+    (MAMBA, "decode_32k", {"embed": "data"}, None, 8.550482e9, 696_173_248),
+    (QWEN, "prefill_32k", {"embed": "data"}, None, 2.164667e15, 774_026_752),
+    (QWEN, "train_4k", None, None, 3.651581e15, 4_635_599_876),
+    (QWEN, "train_4k", {"embed": "data"}, None, 3.651581e15, 2_319_983_108),
+    (MAMBA, "train_4k", None, 2, 7.936777e13, 258_485_684),
+    (OLMOE, "train_4k", {"expert_embed": "data"}, None, 3.403401e15, 11_098_009_604),
+)
+DRYRUN_ARG_RTOL = 0.01
+# benchmarks/perf_iterations.py's o2 on make_production_mesh(): FSDP of
+# olmoe-1b-7b's experts, against the same step without it
+DRYRUN_O2 = (OLMOE, "train_4k", {"expert_embed": "data"})
+# the dryrun phase runs beside the others; by this many seconds after the
+# start the smoke stops waiting for it
+DRYRUN_WAIT_S = 1100
 KERNEL_SOURCES = ("flash_attention", "ssd_scan")
 # the MoE train path (full width, 4 layers) and its card-against-CPU parity:
 # an assignment that routes otherwise on the card must be a near-tie on the
@@ -2589,14 +2637,16 @@ def phase_obs(root: Path, tag_losses: list, watch: dict, smi: str):
                f"dp_mlp_loss {time.perf_counter() - t3:.1f}")
 
 
-def tp_gradients(seed: int, smi: str):
-    """The tp phase's gradient gate: ``make_grad_step`` and one
-    ``make_train_step`` under ``baseline_rules`` over
+def tp_gradients(seed: int, smi: str, cases, meshes, phase: str):
+    """The gradient gate of the tp and fsdp phases: ``make_grad_step`` and
+    one ``make_train_step`` under ``baseline_rules(..., overrides=...)`` over
     ``make_mesh(shape, ("data", "model"), [cuda:0] * 4)`` for each of
-    ``TP_MESHES``, the parameters laid out by ``parallel.tensor.shard_params``,
-    against one device under the same rules; full-width models at
-    ``DP_ARCH_LAYERS`` depth, f32, TF32 off. Prints each case's seconds,
-    which layers ran gathered and position 0's gathered bytes."""
+    ``meshes``, the parameters laid out by ``parallel.tensor.shard_params``,
+    against one device under the same rules; each of ``cases`` (arch,
+    depth, overrides) a full-width model in f32, TF32 off. Prints each
+    case's seconds, which layers ran gathered, the leaves split over the
+    rows and position 0's gathered, all-reduced and reduce-scattered
+    bytes."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
@@ -2606,15 +2656,16 @@ def tp_gradients(seed: int, smi: str):
     from repro_torch.parallel.sharding import axis_rules
     dev = torch.device("cuda", 0)
     opt = AdamW(lr=TRAIN_LR)
-    for arch, n_layers in DP_ARCH_LAYERS.items():
+    for arch, n_layers, overrides in cases:
         cfg = get_config(arch).replace(dtype="float32", num_layers=n_layers)
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
         rng = np.random.default_rng(seed)
         batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (TP_ROWS, DP_SEQ)),
                                     device=dev) for k in ("tokens", "labels")}
         lines, worst = [], 0.0
-        for shape in TP_MESHES:
-            rules = steps.baseline_rules(mesh_mod.make_mesh(shape, ("data", "model"), [dev] * 4))
+        for shape in meshes:
+            rules = steps.baseline_rules(mesh_mod.make_mesh(shape, ("data", "model"), [dev] * 4),
+                                         overrides=overrides)
             lay = tp.layout(cfg, rules)
             with axis_rules(rules):
                 l1, m1, g1 = steps.make_grad_step(cfg, None)(params, batch)
@@ -2651,22 +2702,20 @@ def tp_gradients(seed: int, smi: str):
                 m["one"]["grad_norm"])
             worst = max(worst, g_err, l_err, sl_err, gn_err)
             ok = finite and max(g_err, l_err, sl_err, gn_err) <= DP_TOL
-            gathered = coll.of(0).get("all-gather", (0, 0))
-            reduced = coll.of(0).get("all-reduce", (0, 0))
+            ops = ", ".join(f"{op} {n} x, {nb} B" for op, (n, nb) in sorted(coll.of(0).items()))
             lines.append(f"mesh {shape} ({tp.describe(lay)}): loss rel {l_err:.3g}, gradients "
                          f"max rel {g_err:.3g}; train step loss rel {sl_err:.3g}, grad_norm rel "
                          f"{gn_err:.3g}; gradient {took:.3f} s, train step {step_s:.3f} s; "
-                         f"position 0 all-gather {gathered[0]} x, {gathered[1]} B, all-reduce "
-                         f"{reduced[0]} x, {reduced[1]} B {'ok' if ok else 'FAILED'}")
+                         f"position 0 {ops} {'ok' if ok else 'FAILED'}")
             if not ok:
-                log("tp", f"{arch}: " + "; ".join(lines))
-                raise RuntimeError(f"{arch} tensor parallel over {shape}: beyond {DP_TOL:g} of "
+                log(phase, f"{arch}: " + "; ".join(lines))
+                raise RuntimeError(f"{arch} over {shape} ({overrides}): beyond {DP_TOL:g} of "
                                    f"one device")
-        log("tp", f"gradient gate, {arch} full width (d_model {cfg.d_model}), {cfg.num_layers} "
-                  f"layers, f32, TF32 off, batch {TP_ROWS} x {DP_SEQ}, make_grad_step and "
-                  f"make_train_step under baseline_rules(make_mesh(shape, ('data', 'model'), "
-                  f"[cuda:0] * 4)) against one device: " + "; ".join(lines) +
-                  f"; worst {worst:.3g} (tol {DP_TOL:g}); {smi}")
+        log(phase, f"gradient gate, {arch} full width (d_model {cfg.d_model}), {cfg.num_layers} "
+                   f"layers, f32, TF32 off, batch {TP_ROWS} x {DP_SEQ}, make_grad_step and "
+                   f"make_train_step under baseline_rules(make_mesh(shape, ('data', 'model'), "
+                   f"[cuda:0] * 4), overrides={overrides}) against one device: "
+                   + "; ".join(lines) + f"; worst {worst:.3g} (tol {DP_TOL:g}); {smi}")
         del params, batch
         torch.cuda.empty_cache()
 
@@ -2696,17 +2745,20 @@ def kernel_heads():
         attn_mod.gqa_flash_attention, ssm_mod.mamba_ssd = flash, ssd
 
 
-def tp_serve(seed: int, smi: str) -> dict:
-    """The tp phase's serve gate, each case of ``TP_SERVE``: full-width,
-    full-depth qwen2-1.5b or mamba2-130m in f32 with ``attn_impl="pallas"``
-    over a mesh of ``[cuda:0]`` repeated: the prefill step, every kernel
-    count at 0 just before it and read just after, each position launching
-    its mixer's kernel once a layer on its heads (qwen2: 6 of 12 query heads
-    on 1 KV head over (2, 2), 3 on the one KV head of their group over (1,
-    4) and over (1, 8), where 2 positions attend each group; mamba2: 12 or 6
-    of 24 heads, split by heads), against one device's prefill (logits
-    within ``PARITY_ATOL``); then ``generate`` against one device's tokens.
-    Returns the counts summed over the prefills."""
+def tp_serve(seed: int, smi: str, cases, phase: str) -> dict:
+    """The serve gate of the tp and fsdp phases, each of ``cases`` (arch,
+    mesh, heads a launch, rule overrides): full-width, full-depth qwen2-1.5b
+    or mamba2-130m in f32 with ``attn_impl="pallas"`` over a mesh of
+    ``[cuda:0]`` repeated: the prefill step, every kernel count at 0 just
+    before it and read just after, each position launching its mixer's
+    kernel once a layer on its heads (qwen2: 6 of 12 query heads on 1 KV
+    head over (2, 2), 3 on the one KV head of their group over (1, 4) and
+    over (1, 8), where 2 positions attend each group; mamba2: 12 or 6 of 24
+    heads, split by heads), against one device's prefill (logits within
+    ``PARITY_ATOL``); then ``generate`` against one device's tokens. With
+    ``overrides`` that split parameters over the rows, each position
+    gathers a layer's slices before it runs. Returns the counts summed over
+    the prefills."""
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch import steps
@@ -2715,7 +2767,7 @@ def tp_serve(seed: int, smi: str) -> dict:
     from repro_torch.parallel import tensor as tp
     dev = torch.device("cuda", 0)
     total = {name: 0 for name in KERNEL_SOURCES}
-    for arch in dict.fromkeys(a for a, _, _ in TP_SERVE):
+    for arch in dict.fromkeys(c[0] for c in cases):
         cfg = get_config(arch).replace(dtype="float32", attn_impl="pallas")
         kernel = MIXER_KERNEL[cfg.pattern[0]]
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
@@ -2726,16 +2778,17 @@ def tp_serve(seed: int, smi: str) -> dict:
         with torch.no_grad():
             ref = steps.make_prefill_step(cfg, None)(params, {"tokens": tokens})
             one = generate(cfg, params, prompts, DP_SERVE_GEN)
-        for _, shape, heads in (c for c in TP_SERVE if c[0] == arch):
+        for _, shape, heads, overrides in (c for c in cases if c[0] == arch):
             rules = steps.baseline_rules(mesh_mod.make_mesh(shape, ("data", "model"),
-                                                            [dev] * (shape[0] * shape[1])))
+                                                            [dev] * (shape[0] * shape[1])),
+                                         overrides=overrides)
             lay = tp.layout(cfg, rules)
             shards = tp.shard_params(cfg, params, rules)
             prefill = steps.make_prefill_step(cfg, rules)
             with torch.no_grad():
                 prefill(shards, {"tokens": tokens})          # warm-up, builds the kernel
                 torch.cuda.synchronize(dev)
-                with kernel_heads() as seen:
+                with kernel_heads() as seen, tp.collectives() as coll:
                     reset_counts()
                     t0 = time.perf_counter()
                     logits = prefill(shards, {"tokens": tokens})
@@ -2749,19 +2802,21 @@ def tp_serve(seed: int, smi: str) -> dict:
             same = got.shape == one.shape and torch.equal(got, one)
             for name, n in counts.items():
                 total[name] += n
-            log("tp", f"serve {arch} full width, {cfg.num_layers} layers, f32, attn_impl pallas, "
-                      f"mesh {shape} of [cuda:0] * {lay.grid.size} ({tp.describe(lay)}): prefill "
-                      f"{tuple(tokens.shape)} {took:.3f} s, {kernel} launches {counts[kernel]} "
-                      f"(rows x positions x layers = {want}), heads a launch "
-                      f"{sorted(seen[kernel])} (want {heads}), max |logits - one device| "
-                      f"{err:.3g} (tol {PARITY_ATOL:g}); generate {SERVE_BATCH} prompts of "
-                      f"{DP_SERVE_PROMPT}, {DP_SERVE_GEN} tokens each: "
-                      f"{'equal' if same else 'DIFFERENT'} (decode "
-                      f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step); {smi}")
+            gathered = coll.of(0).get("all-gather", (0, 0))
+            log(phase, f"serve {arch} full width, {cfg.num_layers} layers, f32, attn_impl pallas, "
+                       f"mesh {shape} of [cuda:0] * {lay.grid.size}, overrides {overrides} "
+                       f"({tp.describe(lay)}): prefill {tuple(tokens.shape)} {took:.3f} s, "
+                       f"position 0 all-gather {gathered[0]} x, {gathered[1]} B, {kernel} "
+                       f"launches {counts[kernel]} (rows x positions x layers = {want}), heads a "
+                       f"launch {sorted(seen[kernel])} (want {heads}), max |logits - one device| "
+                       f"{err:.3g} (tol {PARITY_ATOL:g}); generate {SERVE_BATCH} prompts of "
+                       f"{DP_SERVE_PROMPT}, {DP_SERVE_GEN} tokens each: "
+                       f"{'equal' if same else 'DIFFERENT'} (decode "
+                       f"{stats['decode_s'] / DP_SERVE_GEN * 1e3:.3f} ms a step); {smi}")
             others = sum(n for name, n in counts.items() if name != kernel)
             if (counts[kernel] != want or others or seen[kernel] != {heads}
                     or not err <= PARITY_ATOL or not same):
-                raise RuntimeError(f"tp serve {arch} over {shape}: launches {counts} (want "
+                raise RuntimeError(f"{phase} serve {arch} over {shape}: launches {counts} (want "
                                    f"{want} {kernel}), heads {seen}, logits error {err:.3g}, "
                                    f"tokens {'equal' if same else 'different'}")
             del shards, logits
@@ -2770,35 +2825,82 @@ def tp_serve(seed: int, smi: str) -> dict:
     return total
 
 
+def _gradient_then_serve(seed: int, smi: str, phase: str, grads, meshes, serve) -> dict:
+    """The gradient gate (no kernel launch expected: training runs the
+    models' own routes), then the serve gate; returns the prefills'
+    counts."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    reset_counts()
+    tp_gradients(seed, smi, grads, meshes, phase)
+    counts = read_counts()
+    log(phase, f"kernel launches of the gradient gate: {counts} (none expected: training runs "
+               f"the models' own routes)")
+    if any(counts.values()):
+        raise RuntimeError(f"the {phase} gradient path launched a forward-only kernel: {counts}")
+    t1 = time.perf_counter()
+    counts = tp_serve(seed, smi, serve, phase)
+    log(phase, f"seconds: gradients and train steps {t1 - t0:.1f}, serve "
+               f"{time.perf_counter() - t1:.1f}")
+    return counts
+
+
 def phase_tp(seed: int, smi: str) -> dict:
     """Tensor parallelism over ``"model"`` on one card, ``[cuda:0] * 4``
     standing for the mesh's four positions: the gradient gate, then the
     serve gate. Checks values, not speed. Returns the prefills' counts."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    reset_counts()
-    tp_gradients(seed, smi)
-    counts = read_counts()
-    log("tp", f"kernel launches of the gradient gate: {counts} (none expected: training runs "
-              f"the models' own routes)")
-    if any(counts.values()):
-        raise RuntimeError(f"the tp gradient path launched a forward-only kernel: {counts}")
-    t1 = time.perf_counter()
-    counts = tp_serve(seed, smi)
-    log("tp", f"seconds: gradients and train steps {t1 - t0:.1f}, serve "
-              f"{time.perf_counter() - t1:.1f}")
-    return counts
+    return _gradient_then_serve(seed, smi, "tp",
+                                [(a, n, None) for a, n in DP_ARCH_LAYERS.items()], TP_MESHES,
+                                TP_SERVE)
+
+
+def phase_fsdp(seed: int, smi: str) -> dict:
+    """Parameters split over ``"data"`` (FSDP) on one card, ``[cuda:0] *
+    4`` again: the gradient gate of ``FSDP_GRADS`` over ``FSDP_MESHES``,
+    then the serve gate of ``FSDP_SERVE``. Checks values, not speed.
+    Returns the prefills' counts."""
+    return _gradient_then_serve(seed, smi, "fsdp", FSDP_GRADS, FSDP_MESHES, FSDP_SERVE)
+
+
+def _dryrun_line(arch, shape, r, stats, took, smi, want=None) -> list:
+    """Log one dry-run case; returns its positions' distinct FLOPs."""
+    per = sorted(set(stats.per_position_flops.values()))
+    log("dryrun", f"{arch} x {shape} on mesh {r['mesh']} ({r['n_chips']} GPUs): "
+                  f"{took:.2f} s; FLOPs a device {r['hlo_flops']:.6e} (the traced positions' "
+                  f"{'equal' if len(per) == 1 else f'from {per[0]:.6e} to {per[-1]:.6e}'}"
+                  + ("" if want is None else f"; repro {want:.6e}") + "), bytes "
+                  f"{r['hlo_bytes']:.6e}, collectives a position {r['collectives']['bytes']} "
+                  f"x {r['collectives']['counts']} (wire {r['collectives']['total_bytes']:.6e}"
+                  f" B), argument {r['memory']['argument_bytes']} B, temp "
+                  f"{r['memory']['temp_bytes']} B; roofline "
+                  f"{ {k: float(f'{v:.6g}') for k, v in r['roofline'].items()} } "
+                  f"dominant {r['dominant']} (H100 data sheet constants); host of {smi}")
+    if not (r["hlo_flops"] > 0 and r["memory"]["temp_bytes"] > 0
+            and r["collectives"]["total_bytes"] > 0):
+        raise RuntimeError(f"dry run {arch} x {shape}: {r}")
+    if want is not None and (len(per) != 1 or
+                             abs(r["hlo_flops"] - want) > DRYRUN_FLOPS_RTOL * want):
+        raise RuntimeError(f"dry run {arch} x {shape}: FLOPs a device {per} against "
+                           f"repro's {want:.6e}")
+    return per
 
 
 def phase_dryrun(smi: str):
     """The dry run on ``meta`` tensors, on the host: ``repro``'s gate case
     (olmoe-1b-7b x decode_32k on a (2, 2) mesh), every roofline term, the
     tensor-parallel cases of ``DRYRUN_TP`` (FLOPs a device within 1 % of
-    ``repro``'s, every position equal), then one (arch, shape) on
-    ``make_production_mesh()``."""
+    ``repro``'s, every position equal), the (2, 2) cases of ``DRYRUN_FSDP``
+    (also argument bytes within 1 %), one (arch, shape) on
+    ``make_production_mesh()``, and ``DRYRUN_O2`` there against the same
+    step without its overrides: FSDP's all-gathers exceed the baseline's by
+    (1 - 1/32) of one column's expert weights in bf16 at least, its
+    gradients are reduce-scattered, a device's argument bytes are lower."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_mod
+    torch.set_num_threads(1)
     meta = torch.device("meta")
+    t_all = time.perf_counter()
     cases = [(OLMOE, "decode_32k", mesh_mod.make_mesh((2, 2), ("data", "model"), [meta] * 4),
               None)]
     cases += [(arch, shape, mesh_mod.make_mesh(grid, ("data", "model"),
@@ -2808,26 +2910,78 @@ def phase_dryrun(smi: str):
     for arch, shape, mesh, want in cases:
         t0 = time.perf_counter()
         r, stats = dryrun.lower_one(arch, shape, mesh, with_stats=True)
-        took = time.perf_counter() - t0
-        per = sorted(set(stats.per_position_flops.values()))
-        # a checkpointed period's recompute stops early at the last
-        # position's last saved tensor, so that position may count less
-        log("dryrun", f"{arch} x {shape} on mesh {r['mesh']} ({r['n_chips']} GPUs): "
-                      f"{took:.2f} s; FLOPs a device {r['hlo_flops']:.6e} (the traced positions' "
-                      f"{'equal' if len(per) == 1 else f'from {per[0]:.6e} to {per[-1]:.6e}'}"
-                      + ("" if want is None else f"; repro {want:.6e}") + "), bytes "
-                      f"{r['hlo_bytes']:.6e}, collectives a position {r['collectives']['bytes']} "
-                      f"x {r['collectives']['counts']} (wire {r['collectives']['total_bytes']:.6e}"
-                      f" B), temp {r['memory']['temp_bytes']} B; roofline "
-                      f"{ {k: float(f'{v:.6g}') for k, v in r['roofline'].items()} } "
-                      f"dominant {r['dominant']} (H100 data sheet constants); host of {smi}")
-        if not (r["hlo_flops"] > 0 and r["memory"]["temp_bytes"] > 0
-                and r["collectives"]["total_bytes"] > 0):
-            raise RuntimeError(f"dry run {arch} x {shape}: {r}")
-        if want is not None and (len(per) != 1 or
-                                 abs(r["hlo_flops"] - want) > DRYRUN_FLOPS_RTOL * want):
-            raise RuntimeError(f"dry run {arch} x {shape}: FLOPs a device {per} against "
-                               f"repro's {want:.6e}")
+        _dryrun_line(arch, shape, r, stats, time.perf_counter() - t0, smi, want)
+    square = mesh_mod.make_mesh((2, 2), ("data", "model"), [meta] * 4)
+    for arch, shape, overrides, layers, want, args in DRYRUN_FSDP:
+        t0 = time.perf_counter()
+        r, stats = dryrun.lower_one(arch, shape, square, overrides=overrides, with_stats=True,
+                                    cfg_overrides=None if layers is None else
+                                    {"num_layers": layers})
+        _dryrun_line(f"{arch} ({'full depth' if layers is None else f'{layers} layers'}, "
+                     f"overrides {overrides})", shape, r, stats, time.perf_counter() - t0, smi,
+                     want)
+        got = r["memory"]["argument_bytes"]
+        log("dryrun", f"  argument bytes {got} against repro's {args} (rel "
+                      f"{abs(got - args) / args:.3g}, tol {DRYRUN_ARG_RTOL:g})")
+        if abs(got - args) > DRYRUN_ARG_RTOL * args:
+            raise RuntimeError(f"dry run {arch} x {shape} ({overrides}): argument bytes {got} "
+                               f"against repro's {args}")
+    arch, shape, overrides = DRYRUN_O2
+    prod = mesh_mod.make_production_mesh()
+    res = {}
+    for ov in (None, overrides):
+        t0 = time.perf_counter()
+        res[ov is None], stats = dryrun.lower_one(arch, shape, prod, overrides=ov,
+                                                  with_stats=True)
+        _dryrun_line(f"{arch} (overrides {ov})", shape, res[ov is None], stats,
+                     time.perf_counter() - t0, smi)
+    base, fsdp = res[True], res[False]
+    cfg = get_config(arch)
+    experts = (cfg.num_experts // prod.shape["model"]) * cfg.num_layers * 3 * cfg.d_model * \
+        cfg.d_ff * 2
+    bound = (1 - 1 / prod.shape["data"]) * experts
+    extra = fsdp["collectives"]["bytes"]["all-gather"] - base["collectives"]["bytes"]["all-gather"]
+    rs = fsdp["collectives"]["counts"].get("reduce-scatter", 0)
+    a_base, a_fsdp = base["memory"]["argument_bytes"], fsdp["memory"]["argument_bytes"]
+    log("dryrun", f"o2 ({arch} x {shape}, {overrides}) on {fsdp['mesh']}: all-gather bytes "
+                  f"{extra:.6e} above the baseline's (bound {bound:.6e}: (1 - 1/32) of one "
+                  f"column's experts in bf16), reduce-scatters {rs:g}, argument bytes "
+                  f"{a_fsdp} against {a_base}, wire bytes {fsdp['collectives']['total_bytes']:.6e}"
+                  f" against {base['collectives']['total_bytes']:.6e}")
+    if not (extra >= bound and rs > 0 and a_fsdp < a_base):
+        raise RuntimeError(f"dry run o2: all-gather bytes {extra} above the baseline's (bound "
+                           f"{bound}), reduce-scatters {rs}, argument bytes {a_fsdp} against "
+                           f"{a_base}")
+    log("dryrun", f"{time.perf_counter() - t_all:.1f} s in all")
+
+
+def start_dryrun(smi: str):
+    """``phase_dryrun`` in a process of its own (it runs on the host, on
+    ``meta`` tensors), so that it runs beside the card's phases: (process,
+    its output file)."""
+    out = tempfile.NamedTemporaryFile("w+", prefix="chip_smoke_dryrun_", suffix=".txt",
+                                      delete=False)
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dryrun-only",
+                             "--smi", smi], stdout=out, stderr=subprocess.STDOUT)
+    return proc, out
+
+
+def finish_dryrun(dry, timeout: float):
+    """Wait for ``start_dryrun``'s process, print its output and raise if
+    it failed."""
+    proc, out = dry
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    print(out.read(), end="", flush=True)
+    out.close()
+    Path(out.name).unlink(missing_ok=True)
+    if rc != 0:
+        raise RuntimeError(f"the dryrun phase's process ended with {rc}")
 
 
 def _to(tree, dev):
@@ -2839,14 +2993,28 @@ def _to(tree, dev):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run the dryrun phase alone, on the host (the smoke runs it so, in a "
+                         "process of its own)")
+    ap.add_argument("--smi", default="", help="the card's name and power limit, for the log")
     args = ap.parse_args(argv)
+    if args.dryrun_only:
+        try:
+            phase_dryrun(args.smi)
+        except Exception:
+            traceback.print_exc()
+            print("[dryrun] FAILED", flush=True)
+            return 1
+        return 0
     t_start = time.perf_counter()
     phase = "env"
     obs_root = Path(tempfile.mkdtemp(prefix="chip_smoke_obs_"))
+    dry = None
     try:
         smi = phase_env()
         phase = "build"
         phase_build()
+        dry = start_dryrun(smi)
         phase = "kernel"
         kernels = phase_kernel(args.seed, smi)
         by_name = {k["name"]: k for k in kernels}
@@ -2924,10 +3092,16 @@ def main(argv=None) -> int:
         for name, n in tp_counts.items():
             by_name[name]["launches"] += n
         log("tp", f"kernel launches of the tensor-parallel prefills: {tp_counts}")
+        phase = "fsdp"
+        fsdp_counts = phase_fsdp(args.seed, smi)
+        for name, n in fsdp_counts.items():
+            by_name[name]["launches"] += n
+        log("fsdp", f"kernel launches of the FSDP prefills: {fsdp_counts}")
         phase = "dryrun"
         t0 = time.perf_counter()
-        phase_dryrun(smi)
-        log("dryrun", f"{time.perf_counter() - t0:.1f} s in all")
+        finish_dryrun(dry, timeout=max(DRYRUN_WAIT_S - (t0 - t_start), 60.0))
+        dry = None
+        log("dryrun", f"waited {time.perf_counter() - t0:.1f} s for its process")
         phase = "kernels"
         for k in kernels:
             library = "none" if k["library_ms"] is None else f"{k['library_ms']:.4f} ms"
@@ -2940,6 +3114,9 @@ def main(argv=None) -> int:
         return 1
     finally:
         shutil.rmtree(obs_root, ignore_errors=True)
+        if dry is not None and dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
     log("done", f"every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

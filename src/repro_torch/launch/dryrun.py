@@ -17,16 +17,22 @@ counterpart it keeps its name, with this meaning:
   traced position, and the bytes of every traced op;
 * ``while_trips``: empty, no while loops;
 * ``memory``: ``argument_bytes`` and ``output_bytes`` of one device from
-  the shardings, ``temp_bytes`` the peak of position 0's live ``meta``
-  bytes over the step, ``code_bytes`` 0.
+  the shardings, with the train step's moments in the parameters' dtype
+  and token ids in int32, as ``repro`` lowers them; ``temp_bytes`` the
+  peak of position 0's live ``meta`` bytes over the step, ``code_bytes``
+  0.
 
 A mesh of at most ``FULL_TRACE_POSITIONS`` positions is traced whole. A
 larger one, such as the production meshes' 256 and 512, is traced on the
 same grid of positions with one row of the batch axes: the rows' splits
 are equal, so every row's positions have the same shapes and run the same
 program, and the collectives of the batch axes (the gradients' sum over
-the rows) are recorded at the full mesh's row count. Position 0's counts
-are those of the whole mesh.
+the rows) are recorded at the full mesh's row count. A parameter split
+over the rows is laid out for the full mesh (``Mesh.stands_for``): the
+traced row holds its slice, gathers it with stand-ins for the other rows'
+slices, and its all-gathers and reduce-scatters are recorded with the
+bytes and participants of the full row group. Position 0's counts are
+those of the whole mesh.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, config_for_shape
 from repro_torch.core.step_analysis import analyze_step
@@ -80,7 +87,9 @@ def _traced_mesh(mesh):
     rows = [a for a in mesh.axis_names if a in ("pod", "data")]
     n = int(np.prod([mesh.shape[a] for a in rows]))
     shape = tuple(1 if a in rows else mesh.shape[a] for a in mesh.axis_names)
-    return mesh_mod.make_mesh(shape, mesh.axis_names, [mesh.devices.flat[0]] * (mesh.size // n)), n
+    traced = mesh_mod.make_mesh(shape, mesh.axis_names, [mesh.devices.flat[0]] * (mesh.size // n))
+    traced.stands_for = mesh
+    return traced, n
 
 
 def _args(cfg, shape, rules, opt):
@@ -88,10 +97,10 @@ def _args(cfg, shape, rules, opt):
     them."""
     lay = tp_mod.layout(cfg, rules)
     aparams = model_mod.abstract_params(cfg)
-    tensor_parallel = lay is not None and lay.m > 1
+    sharded = lay is not None and lay.sharded
 
     def lay_out(tree):
-        return tp_mod.shard_params(cfg, tree, rules) if tensor_parallel else tree
+        return tp_mod.shard_params(cfg, tree, rules) if sharded else tree
     specs = model_mod.input_specs(cfg, shape)
     if shape.kind == "train":
         state = opt.init(aparams)
@@ -103,7 +112,7 @@ def _args(cfg, shape, rules, opt):
     B = shape.global_batch
     with axis_rules(rules):
         rows = B // n if lay is not None and steps_mod._rows_split(rules, specs["tokens"]) else B
-    if tensor_parallel:
+    if sharded:
         cache = tp_mod.init_cache_shards(lay, rows, shape.seq_len)
     elif lay is not None:
         cache = [model_mod.init_cache(cfg, rows, shape.seq_len, d) for d in lay.grid[:, 0]]
@@ -149,10 +158,12 @@ def lower_one(arch: str, shape_name: str, mesh, *, overrides=None,
     # a device's arguments and outputs, from the full mesh's shardings
     aparams = model_mod.abstract_params(cfg)
     p_bytes = _local_bytes(aparams, steps_mod.param_shardings(cfg, rules), mesh)
-    specs = model_mod.input_specs(cfg, shape)
+    # token ids as repro lowers them, int32 (the port's are int64)
+    specs = {k: v.to(torch.int32) if v.dtype == torch.long else v
+             for k, v in model_mod.input_specs(cfg, shape).items()}
     b_bytes = _local_bytes(specs, steps_mod.batch_shardings(cfg, shape, rules), mesh)
     if shape.kind == "train":
-        m_bytes = 2 * p_bytes * 4 // aparams["embed"].element_size()   # f32 moments
+        m_bytes = 2 * p_bytes   # the moments, as repro lowers them: the parameters' dtype
         arg_bytes, out_bytes = p_bytes + m_bytes + b_bytes + 4, p_bytes + m_bytes + 16
     elif shape.kind == "prefill":
         arg_bytes = p_bytes + b_bytes

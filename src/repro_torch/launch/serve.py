@@ -82,11 +82,12 @@ def generate(cfg, params, prompts, gen_tokens: int, rules=None, prefix=None,
     a cache of its rows (the batch entry of ``cache_shardings``: the rows
     are split where the device count divides B, else every device decodes
     every row) and decodes them; the tokens are concatenated in device
-    order. Under rules that also split the parameters over ``"model"``,
-    each position holds its slice of the parameters
-    (``parallel.tensor.shard_params``) and of the cache (``cache_shardings``
-    puts ``kv_heads``, ``ssm_heads`` and ``ssm_inner`` on the axis), and a
-    row's positions decode its rows together. When ``stats`` is given it is
+    order. Under rules that also split the parameters, over ``"model"`` or
+    over the batch axes (FSDP), each position holds its slice of the
+    parameters (``parallel.tensor.shard_params``) and of the cache
+    (``cache_shardings`` puts ``kv_heads``, ``ssm_heads`` and ``ssm_inner``
+    on ``"model"``), and a row's positions decode its rows together,
+    gathering a layer's slices before it runs. When ``stats`` is given it is
     filled with ``prefill_s``,
     ``decode_s`` and ``decode_steps``, each time taken after every device
     has finished its work.
@@ -104,7 +105,7 @@ def generate(cfg, params, prompts, gen_tokens: int, rules=None, prefix=None,
         shape = InputShape("generate", total, B, "decode")
         spec = leaves(steps_mod.cache_shardings(cfg, shape, rules))[0].spec
         rows = B // lay.n if len(spec) > 1 and spec[1] is not None else B
-        if lay.m == 1:
+        if not lay.sharded:
             cache = [init_cache(cfg, rows, total, d) for d in devices]
         else:
             # each position its slice of the parameters and of the cache

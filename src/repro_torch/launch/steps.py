@@ -14,12 +14,15 @@ other axis with more than one position (``"model"``).
   train step averages the rows' gradients with
   ``parallel.sfb_dense.allreduce_grad`` and applies AdamW once, to the
   parameters on the first device.
-* **Tensor parallelism** (more than one column): the steps take the
+* **Tensor parallelism** (more than one column), **FSDP** (a parameter
+  dim on batch axes, such as ``embed=data``), or both: the steps take the
   parameters as ``parallel.tensor.shard_params`` lays them out, one tree a
   position, and a row's positions run the model split over the column axis
-  as ``parallel/tensor.py`` describes. The train step sums each shard's
-  gradient over the rows (a whole leaf's over every position), clips by the
-  global norm over the shards, and AdamW updates each shard in place on its
+  as ``parallel/tensor.py`` describes, gathering the slices of a leaf split
+  over the rows before the unit that reads it. The train step sums each
+  shard's gradient over the rows (a whole leaf's over every position,
+  a leaf split over the rows reduce-scattered), clips by the global norm
+  over the distinct shards, and AdamW updates each shard in place on its
   position, its moments laid out as the parameters
   (``parallel.tensor.shard_state``).
 
@@ -179,9 +182,9 @@ def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
     autograd, over the rules' rows (module docstring). The loss and
     ``metrics`` (``ce``, ``aux``) are means over the rows, which is the
     global-batch mean: ``loss_fn`` is an unmasked mean over equal rows. Under
-    data parallelism ``grads`` lie on the parameters' device; under tensor
-    parallelism ``params`` and ``grads`` are one tree a position
-    (``parallel.tensor.shard_params``).
+    data parallelism ``grads`` lie on the parameters' device; where the
+    rules split parameters (tensor parallelism, FSDP) ``params`` and
+    ``grads`` are one tree a position (``parallel.tensor.shard_params``).
 
     Under MoE, every row's forward runs before any backward: each MoE
     layer's aux loss, E sum_e density_e mean_probs_e, takes the density (a
@@ -261,26 +264,26 @@ def make_grad_step(cfg: ModelConfig, rules: AxisRules | None,
                      for parts in zip(*rows, strict=True)]
         return loss, metrics, from_leaves(params, grads)
 
-    def tensor_parallel(shards, batch):
+    def sharded(shards, batch):
         tp_mod.check_shards(lay, shards)
         rows = lay.rows()
-        n_leaf = len(leaves(shards[0]))
+        # one autograd leaf a position's leaf, read by every row that
+        # gathers it
+        flat = [[t.detach().requires_grad_(True) for t in leaves(tr)] for tr in shards]
+        trees = [from_leaves(tr, f) for tr, f in zip(shards, flat, strict=True)]
 
         def run(i, mb):
-            trees = [shards[p] for p in rows[i].positions]
-            ps = [[t.detach().requires_grad_(True) for t in leaves(tr)] for tr in trees]
-            _, metrics = tp_mod.loss_row(lay, rows[i], [from_leaves(tr, p) for tr, p in
-                                                        zip(trees, ps, strict=True)], mb, **opts)
-            return [t for p in ps for t in p], metrics
+            _, metrics = tp_mod.loss_row(lay, rows[i], tp_mod.row_params(lay, trees, rows[i]),
+                                         mb, **opts)
+            return [flat[p][k] for p, k in tp_mod.row_reads(lay, i)], metrics
         loss, metrics, by_row = over_rows(batch, run, lay.grid[0, 0])
-        per_position = [g[j * n_leaf:(j + 1) * n_leaf] for g in by_row for j in range(lay.m)]
         with torch.profiler.record_function("train/allreduce"):
-            grads = tp_mod.sync_grads(lay, per_position, shards, 1.0 / lay.n)
+            grads = tp_mod.sync_grads(lay, by_row, shards, 1.0 / lay.n)
         return loss, metrics, grads
 
     if lay is None:
         return one_device
-    return data_parallel if lay.m == 1 else tensor_parallel
+    return sharded if lay.sharded else data_parallel
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, rules: AxisRules | None,
@@ -289,9 +292,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, rules: AxisRules | None,
     loss and its gradient (``make_grad_step``, over the rules' rows),
     clipping by the global norm and an AdamW update, which writes into
     ``params`` and ``opt_state`` on their devices. ``metrics`` holds 0-dim
-    tensors ``loss``, ``ce``, ``aux`` and ``grad_norm``. Under tensor
-    parallelism ``params`` is ``parallel.tensor.shard_params``'s list and
-    ``opt_state`` ``parallel.tensor.shard_state``'s.
+    tensors ``loss``, ``ce``, ``aux`` and ``grad_norm``. Where the rules
+    split parameters ``params`` is ``parallel.tensor.shard_params``'s list
+    and ``opt_state`` ``parallel.tensor.shard_state``'s.
 
     The phases run under ``torch.profiler.record_function`` ranges
     (``train/loss``, ``train/backward``, ``train/allreduce`` over several
@@ -300,17 +303,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, rules: AxisRules | None,
     options = options if options is not None else StepOptions()
     grad_step = make_grad_step(cfg, rules, options)
     lay = tp_mod.layout(cfg, rules)
-    tensor_parallel = lay is not None and lay.m > 1
+    sharded = lay is not None and lay.sharded
 
     def train_step(params, opt_state, step: int, batch):
         loss, metrics, grads = grad_step(params, batch)
         with torch.profiler.record_function("train/clip"):
-            if tensor_parallel:
+            if sharded:
                 grads, gnorm = tp_mod.clip_by_global_norm(lay, grads, options.clip_norm)
             else:
                 grads, gnorm = clip_by_global_norm(grads, options.clip_norm)
         with torch.profiler.record_function("train/optimizer"):
-            if tensor_parallel:
+            if sharded:
                 params, opt_state = tp_mod.adamw_update(lay, opt, params, opt_state, grads, step)
             else:
                 params, opt_state = opt.update(params, opt_state, grads, step)
@@ -359,7 +362,7 @@ def make_prefill_step(cfg: ModelConfig, rules: AxisRules | None):
     """(params, batch) -> last-position logits (B, 1, V) on the parameters'
     (the first position's) device; over the rules' rows, each row prefills
     its rows of the batch (MoE layers in ``_local_groups``), split over its
-    positions under tensor parallelism (``params`` then
+    positions where the rules split parameters (``params`` then
     ``parallel.tensor.shard_params``'s list)."""
     lay = tp_mod.layout(cfg, rules)
 
@@ -369,13 +372,13 @@ def make_prefill_step(cfg: ModelConfig, rules: AxisRules | None):
         homes = list(lay.grid[:, 0])
         rows = _scatter(rules, homes, batch)
         with moe_mod.routing(_local_groups(rules, homes, batch)):
-            if lay.m > 1:
+            if lay.sharded:
                 tp_mod.check_shards(lay, params)
             outs = []
             for row, mb in zip(lay.rows(), rows, strict=True):
                 with tp_mod.at(row.i):
-                    outs.append(tp_mod.prefill_row(lay, row, [params[p] for p in row.positions], mb)
-                                if lay.m > 1 else
+                    outs.append(tp_mod.prefill_row(lay, row, tp_mod.row_params(lay, params, row), mb)
+                                if lay.sharded else
                                 model_mod.prefill_step(cfg, _replica(params, row.devices[0]), mb))
         return _gather(rules, outs, batch["tokens"]).to(homes[0])
     return prefill
@@ -387,7 +390,7 @@ def make_serve_step(cfg: ModelConfig, rules: AxisRules | None):
     ``cache`` is a list, one cache a row holding that row's rows of the
     batch (``cache_shardings``), and each row decodes them (MoE layers in
     ``_local_groups``); the tokens come back on the first device in row
-    order. Under tensor parallelism ``params`` is
+    order. Where the rules split parameters ``params`` is
     ``parallel.tensor.shard_params``'s list and ``cache`` one cache a
     position (``parallel.tensor.init_cache_shards``)."""
     lay = tp_mod.layout(cfg, rules)
@@ -402,17 +405,17 @@ def make_serve_step(cfg: ModelConfig, rules: AxisRules | None):
         homes = list(lay.grid[:, 0])
         shards = _scatter(rules, homes, {"tokens": tokens})
         with moe_mod.routing(_local_groups(rules, homes, {"tokens": tokens})):
-            if lay.m > 1:
+            if lay.sharded:
                 tp_mod.check_shards(lay, params)
             nxt = []
             for row, mb in zip(lay.rows(), shards, strict=True):
                 with tp_mod.at(row.i):
-                    if lay.m == 1:
+                    if not lay.sharded:
                         nxt.append(one(_replica(params, row.devices[0]), cache[row.i],
                                        mb["tokens"], pos)[0])
                         continue
                     logits = tp_mod.decode_row(
-                        lay, row, [params[p] for p in row.positions],
+                        lay, row, tp_mod.row_params(lay, params, row),
                         [cache[p] for p in row.positions], mb["tokens"], pos)
                     nxt.append(torch.argmax(logits[:, -1], dim=-1)[:, None])
         return _gather(rules, nxt, tokens).to(homes[0]), cache

@@ -115,10 +115,14 @@ def mlp_defs(d_model: int, d_ff: int) -> dict:
     }
 
 
+def mlp_hidden(p, x):
+    """SwiGLU's gated hidden activations, before ``w_down``."""
+    return F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+
+
 def mlp_fwd(p, x):
     """SwiGLU feed-forward."""
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    return mlp_hidden(p, x) @ p["w_down"]
 
 
 def rotary(x, pos, theta: float):

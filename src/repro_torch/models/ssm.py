@@ -15,8 +15,9 @@ Under tensor parallelism a mixer splits by heads (``parallel/tensor.py``):
 each shard runs ``mixer_in`` (or ``decode_in``) over its columns, the
 shards' ``B|C`` are gathered, each runs ``mixer_scan`` (``decode_state``)
 over its heads and ``gate``, the sums of squares are summed over the
-shards, and ``mixer_out`` gives each shard's partial of the output. The
-one-device mixer is the same steps with one shard.
+shards, and ``mixer_norm`` and the shard's rows of ``out_proj`` give its
+partial of the output. The one-device mixer is the same steps with one
+shard.
 """
 from __future__ import annotations
 
@@ -181,19 +182,24 @@ def gate(y, z):
     return yz, torch.sum(yz.float() ** 2, dim=-1, keepdim=True)
 
 
-def mixer_out(cfg, p, yz, sumsq):
+def mixer_norm(cfg, p, yz, sumsq):
     """The gated RMSNorm over the whole ``d_inner``, from ``sumsq`` summed
-    over every shard, then the shard's rows of ``out_proj``: its partial of
-    the mixer's output."""
+    over every shard, of the shard's channels: what the shard's rows of
+    ``out_proj`` take."""
     y = yz.float() * torch.rsqrt(sumsq / cfg.d_inner + cfg.norm_eps)
-    return (y * p["norm"].float()).to(yz.dtype) @ p["out_proj"]
+    return (y * p["norm"].float()).to(yz.dtype)
+
+
+def mamba_normed(cfg, p, u):
+    """The Mamba-2 mixer before ``out_proj``: (gated, normed y, final state)."""
+    z, x, bc, dt = mixer_in(cfg, p, u)
+    y, h = mixer_scan(cfg, p, x, bc, dt)
+    return rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps), h
 
 
 def mamba_fwd(cfg, p, u):
     """Full-sequence Mamba-2 mixer. u: (B, S, D) -> (y, final_state)."""
-    z, x, bc, dt = mixer_in(cfg, p, u)
-    y, h = mixer_scan(cfg, p, x, bc, dt)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y, h = mamba_normed(cfg, p, u)
     return y @ p["out_proj"], h
 
 

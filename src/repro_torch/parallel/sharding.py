@@ -35,15 +35,19 @@ _STATE = threading.local()
 class Mesh:
     """``devices``, an array of ``torch.device``s, with one name an axis.
     A device may repeat (``[cuda:0] * 2``): one card then stands for each
-    position of the mesh in turn."""
+    position of the mesh in turn. ``stands_for``, where set, is a larger
+    mesh whose rows of the batch axes this one traces one of
+    (``launch/dryrun.py``): a parameter split over those axes is laid out
+    for it."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, stands_for: Mesh | None = None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if self.devices.ndim != len(self.axis_names):
             raise ValueError(f"a mesh of shape {self.devices.shape} needs "
                              f"{self.devices.ndim} axis names, got {self.axis_names}")
         self.shape = dict(zip(self.axis_names, self.devices.shape))
+        self.stands_for = stands_for
 
     @property
     def size(self) -> int:

@@ -1,7 +1,8 @@
-"""Tensor parallelism over one mesh axis (``"model"``), under one controller.
+"""Tensor parallelism over one mesh axis (``"model"``), and parameters
+split over the rows of the batch axes (FSDP), under one controller.
 
 This module is the one place that knows how a parameter dim is split over
-the axis. A *position* is one entry of the mesh's devices (a
+the mesh. A *position* is one entry of the mesh's devices (a
 ``torch.device``, which may repeat: ``[cuda:0] * 4`` on one card, ``[cpu] *
 4`` in the tests). The positions form a grid: a row for each position of the
 rules' batch axes, a column for each position of the model axis. A row holds
@@ -61,13 +62,29 @@ layer runs in one of two modes.
   cache leaves that the axis splits before the step and writes each
   position's slice back after it.
 
+A leaf may also be **split over the rows** (FSDP, or ZeRO-3), where
+``logical_spec`` puts one of its dims on some of the batch axes (``embed``
+on ``"data"``): ``Layout.row_dims`` holds that dim and its axes. The rows
+that differ only on those axes form the leaf's row group (under ``("pod",
+"data", "model")`` with ``embed=data``, the rows of one pod), and row ``i``
+holds slice ``s`` of the dim, ``s`` its index over the axes, of its
+column's slice: ``repro``'s local shard under ``param_shardings``. Before a
+unit reads such a leaf, each position all-gathers the slices in shard order
+from the positions of its column in its row group (``row_params`` hands a
+row program the slices as ``Parts``): a period's leaves at the start of the
+period, again in its checkpointed recompute, and the gathered copy is
+dropped after the period; the embedding, the final norm and the head
+likewise where they use it. Then the unit runs split or gathered as above.
+
 The gradient of a split leaf is summed over the rows (``all_reduce``); that
 of a leaf every position holds whole is summed over every position, since
 each position's backward gives the share that flowed through its program.
-AdamW updates each position's leaves in place, once a tensor where
-positions share one (a replicated leaf on a repeated device); the moments
-follow the parameters' layout (``shard_state``). Clipping takes the global
-norm over the shards, each replicated leaf once.
+That of a leaf split over the rows is reduce-scattered (``reduce_scatter``):
+each slice sums what every row's program gave every copy of it. AdamW
+updates each position's leaves in place, once a tensor where positions
+share one (a replicated leaf on a repeated device); the moments follow the
+parameters' layout (``shard_state``). Clipping takes the global norm over
+the shards, each distinct slice once.
 
 Each collective records its op and payload bytes, a participating position,
 in the counter that ``collectives()`` makes active; ``core/step_analysis.py``
@@ -78,21 +95,22 @@ from __future__ import annotations
 from collections import defaultdict
 import contextlib
 import functools
+import dataclasses
 from dataclasses import dataclass
 import math
 import threading
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import model as model_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import (
-    cross_entropy, index_tree, mlp_fwd, rms_norm, unstack_tree)
+from repro_torch.models.layers import cross_entropy, mlp_hidden, rms_norm
 from repro_torch.optim.adam import from_leaves, leaves
 from repro_torch.parallel.sfb_dense import allreduce_grad
 from repro_torch.parallel.sharding import AxisRules, axis_rules, logical_spec
@@ -213,7 +231,35 @@ def all_reduce(parts: list, positions, participants: int | None = None,
     return allreduce_grad(parts, out)
 
 
+def reduce_scatter(slices: list, n: int, positions, participants: int) -> list:
+    """The gradient of a leaf split over the rows into ``n`` slices: for
+    each of ``slices`` (a list of what each row's program gave a copy of
+    one slice), their sum on the first one's device. Records the whole
+    leaf's bytes, ``n`` slices', on each of ``positions``."""
+    first = slices[0][0]
+    _record("reduce-scatter", first.numel() * first.element_size() * n, list(positions),
+            participants)
+    return [allreduce_grad(parts, 0) for parts in slices]
+
+
 # ---------------------------------------------------------------- layout
+
+@dataclass(frozen=True)
+class RowSplit:
+    """A leaf's dim split over batch axes ``axes`` into ``n`` slices."""
+    dim: int
+    axes: tuple
+    n: int
+
+
+@dataclass(frozen=True)
+class Parts:
+    """A leaf split over the rows, as a row program receives it: its slices
+    in shard order, held by the positions of its row group (or, in a traced
+    row standing for others, copies of its own), joined along ``dim``."""
+    parts: tuple
+    dim: int
+
 
 @dataclass(frozen=True)
 class Row:
@@ -227,11 +273,14 @@ class Row:
 class Layout:
     """How ``cfg``'s parameters lie over ``rules``' mesh: ``grid`` (rows over
     the batch axes, columns over ``axis``), ``dims`` (a tree like the
-    parameters: the dim of each leaf split over ``axis``, or None) and
-    ``modes`` ("split" or "gathered" for each unit: ``embed``, ``head`` and
-    ``layer{j}/mixer``, ``layer{j}/ffn``) and ``segments`` (a tree like
-    ``dims``: where a position's slice of a leaf is ``1 / m`` of each of
-    several segments of the split dim, their widths, else None)."""
+    parameters: the dim of each leaf split over ``axis``, or None),
+    ``row_dims`` (a tree like ``dims``: each leaf's ``RowSplit`` over batch
+    axes, or None), ``modes`` ("split" or "gathered" for each unit:
+    ``embed``, ``head`` and ``layer{j}/mixer``, ``layer{j}/ffn``) and
+    ``segments`` (a tree like ``dims``: where a position's slice of a leaf
+    is ``1 / m`` of each of several segments of the split dim, their widths,
+    else None). ``row_sizes`` holds the batch axes' sizes; in a traced row
+    that stands for a larger mesh (``Mesh.stands_for``), that mesh's."""
     cfg: object
     rules: AxisRules
     axis: str | None
@@ -239,6 +288,8 @@ class Layout:
     dims: dict
     modes: dict
     segments: dict | None = None
+    row_dims: dict | None = None
+    row_sizes: dict | None = None
 
     @property
     def n(self) -> int:
@@ -248,6 +299,12 @@ class Layout:
     def m(self) -> int:
         return self.grid.shape[1]
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the steps take one tree a position (``shard_params``):
+        parameters split over ``axis`` or over the rows."""
+        return self.m > 1 or any(r is not None for r in leaves(self.row_dims))
+
     def rows(self) -> list:
         return [Row(i, tuple(self.grid[i]), tuple(range(i * self.m, (i + 1) * self.m)))
                 for i in range(self.n)]
@@ -256,6 +313,46 @@ class Layout:
     def period_dims(self) -> dict:
         """``dims`` of one period's leaves (the stacked dim taken off)."""
         return _map_dims(self.dims["blocks"], lambda d: None if d is None else d - 1)
+
+    def _coords(self, i: int) -> dict:
+        """Row ``i``'s index on each batch axis (the traced row's: 0)."""
+        names = list(self.row_sizes)
+        traced = [self.rules.mesh.shape[a] for a in names]
+        return dict(zip(names, (int(c) for c in np.unravel_index(i, traced))))
+
+    def row_slice(self, i: int, split: RowSplit) -> int:
+        """The slice of ``split``'s dim that row ``i`` holds."""
+        c = self._coords(i)
+        return int(np.ravel_multi_index([c[a] for a in split.axes],
+                                        [self.row_sizes[a] for a in split.axes]))
+
+    def holders(self, p: int, split: RowSplit) -> list:
+        """The positions that hold the slices position ``p`` gathers, in
+        shard order: its column's in its row group. A traced row standing
+        for others holds every slice's place itself."""
+        i, j = divmod(p, self.m)
+        c = self._coords(i)
+        out = {}
+        for r in range(self.n):
+            cr = self._coords(r)
+            if all(cr[a] == c[a] for a in c if a not in split.axes):
+                out.setdefault(self.row_slice(r, split), r * self.m + j)
+        return [out.get(s, p) for s in range(split.n)]
+
+    def first_holders(self) -> list:
+        """For each leaf (``leaves`` order), the first position that holds
+        each of its distinct shards."""
+        out = []
+        for d, r in zip(leaves(self.dims), leaves(self.row_dims), strict=True):
+            seen, firsts = set(), []
+            for p in range(self.grid.size):
+                key = (None if d is None else p % self.m,
+                       None if r is None else self.row_slice(p // self.m, r))
+                if key not in seen:
+                    seen.add(key)
+                    firsts.append(p)
+            out.append(firsts)
+        return out
 
 
 def _map_dims(tree, fn):
@@ -272,16 +369,21 @@ def _batch_axes(rules) -> tuple:
 def layout(cfg, rules: AxisRules | None) -> Layout | None:
     """The layout of ``cfg`` under ``rules``; None for one device (no rules,
     or a mesh of one). ``axis`` is the one mesh axis outside the batch axes
-    with more than one position (None: data parallelism alone, ``m`` 1).
-    Raises NotImplementedError where two such axes exist, or where a
-    parameter dim names a mesh axis of more than one position other than
-    ``axis`` (a batch axis, which would shard the parameters over the rows,
-    or a tuple of axes), and TypeError where ``rules`` is no ``AxisRules``."""
+    with more than one position (None: ``m`` 1). A parameter dim on batch
+    axes splits over the rows (``row_dims``). Raises NotImplementedError
+    where two axes outside the batch axes have more than one position, or
+    where a parameter dim names axes of more than one position that are
+    neither ``axis`` nor batch axes alone (``axis`` with a batch axis, or a
+    second model axis) or a second dim of a leaf names batch axes, and
+    TypeError where ``rules`` is no ``AxisRules``."""
     if rules is not None and not isinstance(rules, AxisRules):
         raise TypeError(f"rules must be AxisRules or None, got {type(rules).__name__}")
     if rules is None or rules.mesh is None or rules.mesh.size == 1:
         return None
     mesh = rules.mesh
+    # a traced row's parameters lie as on the mesh it stands for
+    full = rules if mesh.stands_for is None else dataclasses.replace(rules,
+                                                                     mesh=mesh.stands_for)
     bax = _batch_axes(rules)
     rest = [a for a in mesh.axis_names if a not in bax]
     tp = [a for a in rest if mesh.shape[a] > 1]
@@ -290,33 +392,40 @@ def layout(cfg, rules: AxisRules | None) -> Layout | None:
                                   f"{tp}: the step splits them over one axis")
     axis = tp[0] if tp else None
     abstract, axes = model_mod.abstract_params(cfg), model_mod.param_axes(cfg)
+    sizes = full.mesh.shape
 
-    def dim_of(ax, t):
-        with axis_rules(rules):
+    def dims_of(ax, t):
+        with axis_rules(full):
             spec = logical_spec(ax, shape=tuple(t.shape))
-        found = None
+        col, row = None, None
         for d, e in enumerate(spec):
             if e is None:
                 continue
             names = e if isinstance(e, tuple) else (e,)
-            if all(mesh.shape[a] == 1 for a in names):
+            if all(sizes[a] == 1 for a in names):
                 continue
-            if e != axis:
+            if e == axis:
+                col = d
+            elif row is None and all(a in bax for a in names):
+                row = RowSplit(d, names, int(np.prod([sizes[a] for a in names])))
+            else:
                 raise NotImplementedError(
-                    f"a parameter dim of shape {tuple(t.shape)} (axes {ax}) lies on mesh axis "
+                    f"a parameter dim of shape {tuple(t.shape)} (axes {ax}) lies on mesh axes "
                     f"{e!r} of {mesh.shape}: the step cannot split parameters there")
-            found = d
-        return found
+        return col, row
 
     def walk(ax, t):
         if isinstance(ax, dict):
             return {k: walk(ax[k], t[k]) for k in ax}
-        return dim_of(ax, t)
-    dims = walk(axes, abstract)
+        return dims_of(ax, t)
+    both = walk(axes, abstract)
+    dims = _map_dims(both, lambda cr: cr[0])
+    row_dims = _map_dims(both, lambda cr: cr[1])
     order = [mesh.axis_names.index(a) for a in (*bax, *(a for a in rest if a != axis),
                                                  *((axis,) if axis else ()))]
     grid = np.transpose(mesh.devices, order).reshape(-1, mesh.shape[axis] if axis else 1)
-    lay = Layout(cfg, rules, axis, grid, dims, {})
+    lay = Layout(cfg, rules, axis, grid, dims, {}, row_dims=row_dims,
+                 row_sizes={a: sizes[a] for a in bax})
     lay.modes = _modes(lay)
     lay.segments = _map_dims(dims, lambda d: None)
     for j, ch in enumerate(cfg.pattern):
@@ -355,11 +464,15 @@ def _modes(lay: Layout) -> dict:
 
 
 def describe(lay: Layout) -> str:
-    """The units that run gathered, and the heads a position of a split
-    attention layer attends, as one line."""
+    """The units that run gathered, the leaves split over the rows, and the
+    heads a position of a split attention layer attends, as one line."""
     cfg, m = lay.cfg, lay.m
     gathered = sorted(k for k, v in lay.modes.items() if v == "gathered")
     out = f"{m} positions on {lay.axis!r}; gathered: {gathered or 'none'}"
+    split = [r for r in leaves(lay.row_dims) if r is not None]
+    if split:
+        over = sorted({"+".join(r.axes) + f" ({r.n})" for r in split})
+        out += f"; {len(split)} leaves split over the rows: {', '.join(over)}"
     if any(ch == "A" and lay.modes[f"layer{j}/mixer"] == "split"
            for j, ch in enumerate(cfg.pattern)):
         sh = attn.head_shard(cfg, m, 0)
@@ -398,25 +511,39 @@ def _join(parts: list, dim: int, segments=None):
     return torch.cat(out, dim)
 
 
-def _shard(lay: Layout, tree, dims, segs) -> list:
+def _shard(lay: Layout, tree, dims, segs, rows) -> list:
     """One tree a position (flat grid order) of ``tree``'s slices; a slice
     moves to the position's device, so positions on one device share it."""
     if isinstance(tree, dict):
-        per = {k: _shard(lay, tree[k], dims[k], segs[k]) for k in tree}
+        per = {k: _shard(lay, tree[k], dims[k], segs[k], rows[k]) for k in tree}
         return [{k: v[p] for k, v in per.items()} for p in range(lay.grid.size)]
     cols = [_slice(tree, dims, j, lay.m, segs) for j in range(lay.m)]
-    return [cols[j].to(lay.grid[i, j]) for i in range(lay.n) for j in range(lay.m)]
+    # a row slice is cut once a (column slice, slice), so that positions
+    # that hold the same one share it
+    cut = {}
+
+    def piece(i, j):
+        c = cols[j] if dims is not None else cols[0]
+        if rows is None:
+            return c
+        key = (j if dims is not None else None, lay.row_slice(i, rows))
+        if key not in cut:
+            cut[key] = _slice(c, rows.dim, key[1], rows.n)
+        return cut[key]
+    return [piece(i, j).to(lay.grid[i, j]) for i in range(lay.n) for j in range(lay.m)]
 
 
 def shard_params(cfg, params, rules: AxisRules) -> list:
     """Each position's slice of every leaf of ``params``, as ``logical_spec``
     gives it: a list of trees in flat grid order (rows over the batch axes,
-    then the model axis). A contiguous slice is a view where the position's
+    then the model axis), each leaf ``repro``'s local shard under
+    ``param_shardings``. A contiguous slice is a view where the position's
     device is the leaf's, and a replicated leaf is the leaf itself there;
     the slice of a packed leaf of a split Mamba-2 mixer (``segments``) is a
-    copy of ``1 / m`` of the leaf."""
+    copy of ``1 / m`` of the leaf. A leaf split over the rows gives row
+    ``i`` its slice of the dim (``Layout.row_slice``)."""
     lay = layout(cfg, rules)
-    return _shard(lay, params, lay.dims, lay.segments)
+    return _shard(lay, params, lay.dims, lay.segments, lay.row_dims)
 
 
 def shard_state(cfg, state: dict, rules: AxisRules) -> dict:
@@ -427,17 +554,89 @@ def shard_state(cfg, state: dict, rules: AxisRules) -> dict:
 
 def gather_params(cfg, shards: list, rules: AxisRules):
     """The inverse of ``shard_params``: every leaf whole, on the first
-    position's device, the slices of row 0 concatenated in shard order."""
+    position's device, each column's row slices joined in shard order (from
+    row 0's row group), then the columns of row 0."""
     lay = layout(cfg, rules)
     dev = lay.grid[0, 0]
 
-    def rec(nodes, dims, segs):
+    def rec(nodes, dims, segs, rows):
         if isinstance(nodes[0], dict):
-            return {k: rec([t[k] for t in nodes], dims[k], segs[k]) for k in nodes[0]}
+            return {k: rec([t[k] for t in nodes], dims[k], segs[k], rows[k])
+                    for k in nodes[0]}
+        cols = [nodes[j] if rows is None else
+                torch.cat([nodes[q].to(dev) for q in lay.holders(j, rows)], rows.dim)
+                for j in range(lay.m)]
         if dims is None:
-            return nodes[0].to(dev)
-        return _join([t.to(dev) for t in nodes[:lay.m]], dims, segs)
-    return rec(shards, lay.dims, lay.segments)
+            return cols[0].to(dev)
+        return _join([t.to(dev) for t in cols], dims, segs)
+    return rec(shards, lay.dims, lay.segments, lay.row_dims)
+
+
+def row_params(lay: Layout, shards: list, row: Row) -> list:
+    """The trees a row's programs take, one a position of ``row``: its own
+    leaves, and each leaf split over the rows as the ``Parts`` it gathers
+    (``holders``)."""
+    flat = [leaves(t) for t in shards]
+    out = []
+    for p in row.positions:
+        mine = [t if r is None else Parts(tuple(flat[q][k] for q in lay.holders(p, r)), r.dim)
+                for k, (t, r) in enumerate(zip(flat[p], leaves(lay.row_dims), strict=True))]
+        out.append(from_leaves(shards[p], mine))
+    return out
+
+
+def row_reads(lay: Layout, i: int) -> list:
+    """The ``(position, leaf)`` pairs that row ``i``'s programs read
+    (``row_params``): every leaf of its positions, then the slices of
+    other rows that it gathers, each once."""
+    n_leaf = len(leaves(lay.dims))
+    out = [(p, k) for p in range(i * lay.m, (i + 1) * lay.m) for k in range(n_leaf)]
+    seen = set(out)
+    for p in range(i * lay.m, (i + 1) * lay.m):
+        for k, r in enumerate(leaves(lay.row_dims)):
+            for q in ([] if r is None else lay.holders(p, r)):
+                if (q, k) not in seen:
+                    seen.add((q, k))
+                    out.append((q, k))
+    return out
+
+
+def _whole_rows(tree, row: Row, j: int):
+    """Position ``j`` of ``row``'s tree with every ``Parts`` all-gathered in
+    shard order on its device."""
+    if isinstance(tree, dict):
+        return {k: _whole_rows(v, row, j) for k, v in tree.items()}
+    if not isinstance(tree, Parts):
+        return tree
+    nbytes = sum(p.numel() for p in tree.parts) * tree.parts[0].element_size()
+    _record("all-gather", nbytes, [row.positions[j]], len(tree.parts))
+    with at(row.i, j):
+        return torch.cat([p.to(row.devices[j]) for p in tree.parts], tree.dim)
+
+
+def _rows_joined(row: Row, trees: list) -> list:
+    return [_whole_rows(t, row, j) for j, t in enumerate(trees)]
+
+
+def _periods(tree) -> list:
+    """``unstack_tree`` of a tree that may hold ``Parts``."""
+    if isinstance(tree, Parts):
+        per = [p.unbind(0) for p in tree.parts]
+        return [Parts(tuple(ps), tree.dim - 1) for ps in zip(*per, strict=True)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    per = {k: _periods(v) for k, v in tree.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
+
+
+def _period_of(tree, i: int):
+    """``index_tree`` of a tree that may hold ``Parts``."""
+    if isinstance(tree, Parts):
+        return Parts(tuple(p[i] for p in tree.parts), tree.dim - 1)
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return {k: _period_of(v, i) for k, v in tree.items()}
 
 
 # ------------------------------------------------- the programs of a row
@@ -458,6 +657,45 @@ def _gather_leaf(row: Row, parts: list, dim, to: int | None = None):
     return all_gather(parts, dim, row.devices, row.positions, to)
 
 
+def _closing(row: Row, pre, key: str, units: list, *per_position) -> list:
+    """``pre(unit, *args) @ unit[key]`` at each position. Where this is the
+    period's last unit (``_period`` sets ``last_unit``), the products of every position but
+    the row's last are kept for the backward pass (``_remat_policy``): a
+    checkpoint's recompute runs up to the last tensor the backward pass
+    saved, so it would otherwise recompute them for the sake of the later
+    positions' work, which ``repro``'s program does not."""
+    last = getattr(_STATE, "last_unit", False)
+    out = []
+    for j, (p, *args) in enumerate(zip(units, *per_position, strict=True)):
+        with at(row.i, j):
+            y = pre(p, *args)
+            with _flag("keep", last and j < len(units) - 1):
+                out.append(y @ p[key])
+    return out
+
+
+@contextlib.contextmanager
+def _flag(name: str, on: bool):
+    prev = getattr(_STATE, name, False)
+    setattr(_STATE, name, on)
+    try:
+        yield
+    finally:
+        setattr(_STATE, name, prev)
+
+
+def _remat_policy(base):
+    """``base`` (a ``transformer.REMAT_POLICIES`` policy, None to recompute
+    everything) that also keeps the products ``_closing`` marks."""
+    def policy(ctx, op, *args, **kwargs):
+        if getattr(_STATE, "keep", False) and op in tf_mod._MATMULS:
+            return CheckpointPolicy.MUST_SAVE
+        if base is None:
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        return base(ctx, op, *args, **kwargs)
+    return policy
+
+
 def _gather_unit(row: Row, units: list, dims: dict) -> list:
     full = {k: _gather_leaf(row, [u[k] for u in units], dims[k]) for k in units[0]}
     return [{k: v[j] for k, v in full.items()} for j in range(len(units))]
@@ -469,21 +707,23 @@ def _embed(lay, row, ps, batch, prefix: bool = True):
     config has a frontend, as ``model.embed_inputs``."""
     cfg = lay.cfg
     ids = [batch["tokens"].to(d) for d in row.devices]
+    emb = [_whole_rows(p["embed"], row, j) for j, p in enumerate(ps)]
     if lay.modes["embed"] == "split":
         def look(w, t, j):
             V = w.shape[0]
             mine = (t >= j * V) & (t < (j + 1) * V)
             e = w[(t - j * V).clamp(0, V - 1)]
             return torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
-        xs = reduce_partial(_each(row, look, [p["embed"] for p in ps], ids, range(lay.m)),
+        xs = reduce_partial(_each(row, look, emb, ids, range(lay.m)),
                             row.devices, row.positions)
     else:
-        ws = _gather_leaf(row, [p["embed"] for p in ps], lay.dims["embed"])
+        ws = _gather_leaf(row, emb, lay.dims["embed"])
         xs = _each(row, lambda w, t: w[t], ws, ids)
     xs = _each(row, lambda x: x * (cfg.d_model ** 0.5), xs)
     n_prefix = 0
     if prefix and cfg.frontend != "none":
-        fp = _gather_leaf(row, [p["frontend_proj"] for p in ps], lay.dims["frontend_proj"])
+        fp = _gather_leaf(row, [_whole_rows(p["frontend_proj"], row, j) for j, p in enumerate(ps)],
+                          lay.dims["frontend_proj"])
         xs = _each(row, lambda x, w: torch.cat([batch["prefix"].to(x.device).to(x.dtype) @ w, x],
                                                dim=1), xs, fp)
         n_prefix = batch["prefix"].shape[1]
@@ -531,7 +771,8 @@ def _ssm_split(lay, row, units, hs, caches=None):
                    units, ins, bcs, caches, range(m))
     gated = _each(row, lambda y, i: ssm_mod.gate(y, i[0]), ys, ins)
     sumsq = reduce_partial([s for _, s in gated], row.devices, row.positions)
-    parts = _each(row, lambda p, g, s: ssm_mod.mixer_out(cfg, p, g[0], s), units, gated, sumsq)
+    parts = _closing(row, lambda p, g, s: ssm_mod.mixer_norm(cfg, p, g[0], s), "out_proj",
+                     units, gated, sumsq)
     return reduce_partial(parts, row.devices, row.positions)
 
 
@@ -546,7 +787,7 @@ def _mixer(lay, row, key, ch, units, dims, hs, pos):
     full = _gather_unit(row, units, dims)
     if ch == "A":
         return _each(row, lambda p, h, q: attn.attention(cfg, p, h, q)[0], full, hs, pos)
-    return _each(row, lambda p, h: ssm_mod.mamba_fwd(cfg, p, h)[0], full, hs)
+    return _closing(row, lambda p, h: ssm_mod.mamba_normed(cfg, p, h)[0], "out_proj", full, hs)
 
 
 def _ffn(lay, row, key, j, units, dims, hs, groups):
@@ -556,9 +797,9 @@ def _ffn(lay, row, key, j, units, dims, hs, groups):
     split = lay.modes[f"{key}/ffn"] == "split"
     if not tf_mod._layer_is_moe(cfg, j):
         if split:
-            return reduce_partial(_each(row, mlp_fwd, units, hs), row.devices,
+            return reduce_partial(_closing(row, mlp_hidden, "w_down", units, hs), row.devices,
                                   row.positions), None
-        return _each(row, mlp_fwd, _gather_unit(row, units, dims), hs), None
+        return _closing(row, mlp_hidden, "w_down", _gather_unit(row, units, dims), hs), None
     if not split:
         outs = _each(row, lambda p, h: moe_mod.moe_layer(cfg, p, h, groups),
                      _gather_unit(row, units, dims), hs)
@@ -577,22 +818,29 @@ def _ffn(lay, row, key, j, units, dims, hs, groups):
 
 def _period(lay, row, pps, xs, pos, groups):
     """One period of layers over the row's positions: (xs, aux, stats), as
-    ``transformer.period_fwd``."""
+    ``transformer.period_fwd``; ``pps`` may hold ``Parts``."""
     cfg = lay.cfg
     pd = lay.period_dims
+    # the leaves split over the rows, gathered for this period (again in
+    # its recompute) and dropped after it
+    pps = _rows_joined(row, pps)
     aux = torch.zeros((), dtype=torch.float32, device=row.devices[0])
     stats = []
     for j, ch in enumerate(cfg.pattern):
         key = f"layer{j}"
+        last = j == len(cfg.pattern) - 1
         lps, dims = [pp[key] for pp in pps], pd[key]
         g1 = _gather_leaf(row, [lp["norm1"] for lp in lps], dims["norm1"])
         hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g1)
-        mix = _mixer(lay, row, key, ch, [lp["mixer"] for lp in lps], dims["mixer"], hs, pos)
+        with _flag("last_unit", last and cfg.d_ff <= 0):
+            mix = _mixer(lay, row, key, ch, [lp["mixer"] for lp in lps], dims["mixer"], hs, pos)
         xs = _each(row, torch.add, xs, mix)
         if cfg.d_ff > 0:
             g2 = _gather_leaf(row, [lp["norm2"] for lp in lps], dims["norm2"])
             hs = _each(row, lambda x, g: rms_norm(x, g, cfg.norm_eps), xs, g2)
-            ys, r = _ffn(lay, row, key, j, [lp["ffn"] for lp in lps], dims["ffn"], hs, groups)
+            with _flag("last_unit", last):
+                ys, r = _ffn(lay, row, key, j, [lp["ffn"] for lp in lps], dims["ffn"], hs,
+                             groups)
             xs = _each(row, torch.add, xs, ys)
             if r is not None:
                 aux = aux + moe_mod.aux_loss(r.density, r.mean_probs)
@@ -607,16 +855,15 @@ def _stack(lay, row, blocks, xs, pos, remat: bool, remat_policy: str):
     policy = tf_mod.REMAT_POLICIES[remat_policy]
     fn = _period
     if remat and policy != "everything":
-        kw = {} if policy is None else {
-            "context_fn": lambda: create_selective_checkpoint_contexts(policy)}
+        ctx = functools.partial(create_selective_checkpoint_contexts, _remat_policy(policy))
 
         def fn(lay, row, pps, xs, pos, groups):
             return checkpoint(_period, lay, row, pps, xs, pos, groups, use_reentrant=False,
-                              **kw)
+                              context_fn=ctx)
     groups = moe_mod.stack_groups(xs[0].shape[0] * xs[0].shape[1])
     aux = torch.zeros((), dtype=torch.float32, device=row.devices[0])
     stats = ()
-    per = [unstack_tree(b) for b in blocks]
+    per = [_periods(b) for b in blocks]
     for k in range(len(per[0])):
         xs, a, st = fn(lay, row, [p[k] for p in per], xs, pos, groups)
         aux = aux + a
@@ -625,7 +872,8 @@ def _stack(lay, row, blocks, xs, pos, remat: bool, remat_policy: str):
 
 
 def _final(lay, row, ps, xs):
-    g = _gather_leaf(row, [p["final_norm"] for p in ps], lay.dims["final_norm"])
+    g = _gather_leaf(row, [_whole_rows(p["final_norm"], row, j) for j, p in enumerate(ps)],
+                     lay.dims["final_norm"])
     return _each(row, lambda x, w: rms_norm(x, w, lay.cfg.norm_eps), xs, g)
 
 
@@ -639,17 +887,22 @@ def _logits(lay, row, ps, hs):
     def head(h, w):
         return h @ (w.T if cfg.tie_embeddings else w)
     if lay.modes["head"] == "split":
-        parts = _each(row, head, hs, [p[key] for p in ps])
+        ws = [_whole_rows(p[key], row, j) for j, p in enumerate(ps)]
+        parts = _each(row, head, hs, ws)
         return all_gather(parts, -1, row.devices, row.positions, to=0)
-    w = _gather_leaf(row, [p[key] for p in ps], lay.dims[key], to=0)
+    if lay.dims[key] is None:
+        w = _whole_rows(ps[0][key], row, 0)
+    else:
+        w = _gather_leaf(row, [_whole_rows(p[key], row, j) for j, p in enumerate(ps)],
+                         lay.dims[key], to=0)
     with at(row.i, 0):
         return head(hs[0], w)
 
 
 def loss_row(lay, row, ps, batch, *, remat=True, loss_chunk=0, remat_policy="full"):
     """``model.loss_fn`` of one row's batch over its positions' parameters
-    ``ps`` (one tree a position): (loss, {"ce", "aux", "moe"}) on the row's
-    first device."""
+    ``ps`` (``row_params``: one tree a position): (loss, {"ce", "aux",
+    "moe"}) on the row's first device."""
     if remat_policy not in tf_mod.REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {remat_policy!r}; "
                          f"known: {sorted(tf_mod.REMAT_POLICIES)}")
@@ -756,8 +1009,8 @@ def decode_row(lay, row, ps, caches, tokens, pos: int):
     pd = lay.period_dims
     cd = _cache_dims(lay, model_mod.cache_specs(cfg, 1, 1))
     for i in range(cfg.num_periods):
-        pps = [index_tree(p["blocks"], i) for p in ps]
-        pcs = [index_tree(c, i) for c in caches]
+        pps = _rows_joined(row, [_period_of(p["blocks"], i) for p in ps])
+        pcs = [_period_of(c, i) for c in caches]
         for j, ch in enumerate(cfg.pattern):
             key = f"layer{j}"
             lps, dims = [pp[key] for pp in pps], pd[key]
@@ -778,36 +1031,51 @@ def decode_row(lay, row, ps, caches, tokens, pos: int):
 
 # ------------------------------------------------- gradients and update
 
-def sync_grads(lay: Layout, grads: list, shards: list, scale: float) -> list:
-    """``grads[p]``: position ``p``'s leaf gradients (flat, ``leaves``
-    order) of its own program. A split leaf's are summed over the rows, a
-    whole leaf's over every position; each times ``scale``. Returns one tree
-    a position, shaped as ``shards``."""
-    flat_dims = leaves(lay.dims)
-    out = [[None] * len(flat_dims) for _ in grads]
+def sync_grads(lay: Layout, by_row: list, shards: list, scale: float) -> list:
+    """``by_row[i]``: row ``i``'s gradients of the leaves its programs read,
+    in ``row_reads`` order. A split leaf's are summed over the rows, a whole
+    leaf's over every position, and a leaf split over the rows is
+    reduce-scattered over its column's positions (every position where it
+    is whole over the columns); each times ``scale``. Returns one tree a
+    position, shaped as ``shards``."""
+    got = defaultdict(list)
+    for i, grads in enumerate(by_row):
+        for pk, g in zip(row_reads(lay, i), grads, strict=True):
+            got[pk].append(g)
+    flat_dims, flat_rows = leaves(lay.dims), leaves(lay.row_dims)
+    out = [[None] * len(flat_dims) for _ in shards]
     everyone = list(range(lay.grid.size))
     stand_in = getattr(_STATE, "rows", 1)
-    for k, d in enumerate(flat_dims):
+    for k, (d, r) in enumerate(zip(flat_dims, flat_rows, strict=True)):
         groups = [everyone] if d is None else [
             [i * lay.m + j for i in range(lay.n)] for j in range(lay.m)]
         for g in groups:
-            summed = all_reduce([grads[p][k] for p in g], g, len(g) * stand_in)
-            for p, s in zip(g, summed, strict=True):
-                out[p][k] = s * scale
-    return [from_leaves(shards[p], out[p]) for p in range(len(grads))]
+            if r is None:
+                summed = all_reduce([got[(p, k)][0] for p in g], g, len(g) * stand_in)
+                for p, t in zip(g, summed, strict=True):
+                    out[p][k] = t * scale
+                continue
+            holding = defaultdict(list)
+            for p in g:
+                holding[lay.row_slice(p // lay.m, r)].append(p)
+            holding = [holding[s] for s in sorted(holding)]
+            sums = reduce_scatter([[t for p in ps for t in got[(p, k)]] for ps in holding],
+                                  r.n, g, len(g) * stand_in)
+            for ps, total in zip(holding, sums, strict=True):
+                for p in ps:
+                    out[p][k] = total.to(lay.grid.flat[p]) * scale
+    return [from_leaves(shards[p], out[p]) for p in range(len(shards))]
 
 
 def clip_by_global_norm(lay: Layout, grads: list, max_norm: float):
-    """Scale every position's gradients so that their global norm, over the
-    shards of row 0 with each whole leaf once, is at most ``max_norm``.
-    Returns (grads, the norm before clipping) as ``optim.adam``'s."""
+    """Scale every position's gradients so that their global norm, over
+    each distinct shard once (``Layout.first_holders``), is at most
+    ``max_norm``. Returns (grads, the norm before clipping) as
+    ``optim.adam``'s."""
     dev = lay.grid[0, 0]
-    flat_dims = leaves(lay.dims)
-    sq = []
-    for j in range(lay.m):
-        for g, d in zip(leaves(grads[j]), flat_dims, strict=True):
-            if d is not None or j == 0:
-                sq.append(torch.sum(g.float() ** 2).to(dev))
+    flat = [leaves(t) for t in grads]
+    sq = [torch.sum(flat[p][k].float() ** 2).to(dev)
+          for k, firsts in enumerate(lay.first_holders()) for p in firsts]
     n = torch.sqrt(sum(sq))
     scale = torch.minimum(torch.ones_like(n),
                           torch.full_like(n, max_norm) / torch.clamp_min(n, 1e-9))
@@ -841,6 +1109,6 @@ def adamw_update(lay: Layout, opt, shards: list, state: dict, grads: list, step:
 def check_shards(lay: Layout, shards) -> None:
     """Raise TypeError unless ``shards`` is one tree a position."""
     if not isinstance(shards, list) or len(shards) != lay.grid.size:
-        raise TypeError(f"under tensor parallelism over {lay.m} positions a step takes "
+        raise TypeError(f"with parameters split over the mesh a step takes "
                         f"parallel.tensor.shard_params(cfg, params, rules), one tree for each "
                         f"of the {lay.grid.size} positions; got {type(shards).__name__}")

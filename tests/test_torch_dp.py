@@ -332,17 +332,23 @@ def test_dp_grads_match_one_device(arch, n_dev, rows):
 
 def test_tensor_parallel_rules_raise():
     """What the steps still refuse: rules that are no ``AxisRules``
-    (TypeError); a parameter dim that names a mesh axis the step cannot split
-    over, a batch axis (``embed`` on ``"data"``) or a second axis beside
-    ``"model"`` (NotImplementedError); under tensor parallelism, a whole
+    (TypeError); parameters split over a second axis beside ``"model"``
+    outside the batch axes, or a parameter dim on ``"model"`` and a batch
+    axis at once (NotImplementedError); under tensor parallelism, a whole
     parameter tree where the shards are due (TypeError). Rules that split
-    parameters over ``"model"`` build (tests/test_torch_tp.py runs them); a
-    ``"model"`` axis of size 1 is data parallelism."""
+    parameters over ``"model"`` build (tests/test_torch_tp.py runs them), and
+    so do rules that split a parameter dim over a batch axis (``embed`` on
+    ``"data"``: tests/test_torch_fsdp.py runs them); a ``"model"`` axis of
+    size 1 is data parallelism."""
     cfg = _cfg("qwen2-1.5b")
     mesh = tmesh.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
-    bad = [tsteps.baseline_rules(mesh, overrides={"embed": "data"}),
-           tsteps.baseline_rules(tmesh.make_mesh((1, 2, 2), ("data", "expert", "model"),
-                                                 [CPU] * 4), overrides={"experts": "expert"})]
+    bad = [tsteps.baseline_rules(tmesh.make_mesh((1, 2, 2), ("data", "expert", "model"),
+                                                 [CPU] * 4), overrides={"experts": "expert"}),
+           tsteps.baseline_rules(mesh, overrides={"embed": ("data", "model")})]
+    fsdp = tsteps.baseline_rules(mesh, overrides={"embed": "data"})
+    assert callable(tsteps.make_train_step(cfg, AdamW(), fsdp))
+    assert callable(tsteps.make_prefill_step(cfg, fsdp))
+    assert callable(tsteps.make_serve_step(cfg, fsdp))
     for rules in bad:
         for build in (lambda r: tsteps.make_train_step(cfg, AdamW(), r),
                       lambda r: tsteps.make_prefill_step(cfg, r),
