@@ -87,9 +87,13 @@ Phases, each printed on lines of its own and each fatal when it fails:
            ``[cuda:0, cuda:0]`` and AR, PS and SFB with 2-way stage data
            parallelism on ``[cuda:0] * 4`` under 1f1b and zb: the eager
            engine against the single-device gradient on the card, the
-           compiled engine (its loops CUDA graphs, 1 and ``n_micro``
-           microbatch bodies a graph) against the eager engine, with its
-           ``peak_stash`` and event count. The same for olmoe-1b-7b at 4
+           compiled engine (its loops CUDA graphs, one a shard, 1 and
+           ``n_micro`` microbatch bodies a graph) against the eager engine,
+           with its ``peak_stash``, event count, and graphs and syncs a loop
+           (one graph a shard with work). With 2 or more cards, the 2-shard
+           cases again with a stage's shards on distinct cards, both engines
+           against the eager engine on one card; with one card, a line says
+           that case was not run. The same for olmoe-1b-7b at 4
            layers, 1f1b and zb with AR and 2 shards a stage, the eager engine
            against one device's mean over the row blocks the shards route
            alone, the compiled engine at unroll 1 against the eager engine.
@@ -1761,13 +1765,76 @@ def _rel(a, b) -> float:
     return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
 
 
+def _across_cards(n: int):
+    """Device sets of 2 stages of ``n`` shards, a stage's shards on distinct
+    cards (``[[cuda:0, cuda:1], [cuda:2, cuda:3]]`` on 4 cards, else both
+    stages on ``[cuda:0, cuda:1]``), and why not where the host has fewer
+    than ``n`` cards."""
+    count = torch.cuda.device_count()
+    if count < n:
+        return None, (f"the across-card case was not run: torch.cuda.device_count() is "
+                      f"{count}, a stage of {n} shards needs {n} cards")
+    cards = [torch.device("cuda", i) for i in range(count)]
+    if count >= 2 * n:
+        return [cards[:n], cards[n:2 * n]], ""
+    return [cards[:n]] * 2, ""
+
+
+def _sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _grads_rel(got: list, want: list) -> float:
+    """The largest ``_rel`` over the leaves of two stage-gradient lists,
+    ``got``'s leaves moved to ``want``'s devices."""
+    from repro_torch.optim.adam import leaves
+    return max(_rel(a.to(b.device), b) for x, y in zip(got, want, strict=True)
+               for a, b in zip(leaves(x), leaves(y), strict=True) if b.numel())
+
+
+def _on_first(grads: list, sets: list) -> bool:
+    """Every stage's gradient on its stage's first device (2 stages, no
+    virtual ones across cards)."""
+    from repro_torch.optim.adam import leaves
+    return all(a.device == sets[u % len(sets)][0] for u, g in enumerate(grads)
+               for a in leaves(g))
+
+
+def _scan_loops(scan, sched: str, sync: str, n: int) -> tuple:
+    """The compiled engine's graphs and syncs (or SFB gathers) a loop of its
+    last step, as text, and the loops whose graphs are off: one graph a
+    shard where every shard has work (the forward; a backward that gives
+    carry gradients or unsynced parameter gradients), shard 0's alone where
+    only SFB's recompute has work."""
+    graphs = {}
+    for u, kind, k, i in scan._graphs:
+        graphs.setdefault((u, kind), set()).add(i)
+    sfb = sync == "sfb" and n > 1
+    text, bad = [], []
+    for (u, kind), c in sorted(scan.loop_counts.items(), key=lambda x: ("FBW".index(x[0][1]),
+                                                                       x[0][0])):
+        every = kind == "F" or (kind == "B" and (u > 0 or (sched != "zb" and not sfb))) or (
+            kind == "W" and not sfb)
+        want = set(range(n)) if every else {0}
+        got = graphs.get((u, kind), set())
+        text.append(f"{kind}{u} {len(got)} graphs, {c['syncs']} syncs, {c['runs']} runs")
+        if got != want:
+            bad.append(f"{kind}{u}: graphs of shards {sorted(got)}, want {sorted(want)}")
+    return ", ".join(text), bad
+
+
 def pipeline_gate(dev, seed: int, smi: str):
     """Both engines' loss and gradients, full-width qwen2-1.5b at 4 layers in
     f32: every schedule on 2 stages (interleaved: 2 x 2 virtual stages), and
     AR, PS and SFB with 2-way stage data parallelism under 1f1b and zb. The
     eager engine against the single-device gradient on the same device; the
-    compiled engine (its loops CUDA graphs) against the eager engine, with 1
-    and with ``n_micro`` microbatch bodies a graph."""
+    compiled engine (its loops CUDA graphs, one a shard) against the eager
+    engine, with 1 and with ``n_micro`` microbatch bodies a graph, its graphs
+    and syncs a loop printed and the graphs held to one a shard with work.
+    Where the host has the cards, the 2-shard cases again with a stage's
+    shards on distinct cards (``_across_cards``), both engines against the
+    eager engine on one card; otherwise a line says why not."""
     from repro_torch.configs import get_config
     from repro_torch.exec import CompiledPipelineRunner, PipelineRunner, split_model
     from repro_torch.models.model import init_params, loss_fn
@@ -1796,7 +1863,7 @@ def pipeline_gate(dev, seed: int, smi: str):
              for sched in ("gpipe", "1f1b", "interleaved", "zb")]
     cases += [(sched, sync, 2, 2, 1)
               for sched in ("1f1b", "zb") for sync in ("allreduce", "ps", "sfb")]
-    worst, scan_worst, lines, scan_lines = 0.0, 0.0, [], []
+    worst, scan_worst, lines, scan_lines, not_across = 0.0, 0.0, [], [], set()
     for sched, sync, n, n_micro, V in cases:
         plan = _two_stage_plan(sync, n, n_micro)
         splits = plan.layer_splits(cfg.num_periods, n_chunks=V)
@@ -1831,41 +1898,72 @@ def pipeline_gate(dev, seed: int, smi: str):
             raise RuntimeError(f"pipeline {name}: loss {l_err:.3g} or gradients {g_err:.3g} "
                                f"beyond {PIPE_GATE_TOL:g} of the single-device step")
         U = 2 * V
+        layouts = [("one card", [[dev] * n] * 2)]
+        if n > 1:
+            sets, why = _across_cards(n)
+            if sets is None:
+                not_across.add(why)
+            else:
+                layouts.append(("across cards", sets))
+                far = PipelineRunner(fns, plan, sets, **kw)
+                t0 = time.perf_counter()
+                fg, fs = far.step(far.place_params(sp), batch)
+                _sync_cards()
+                took = time.perf_counter() - t0
+                f_err = _grads_rel(fg, grads)
+                fl_err = abs(fs.loss - stats.loss) / abs(stats.loss)
+                ok = max(f_err, fl_err) <= PIPE_GATE_TOL and _on_first(fg, sets)
+                scan_worst = max(scan_worst, f_err, fl_err)
+                scan_lines.append(f"{name}, eager on {[[str(d) for d in s] for s in sets]} "
+                                  f"against one card: loss rel {fl_err:.3g}, gradients max rel "
+                                  f"{f_err:.3g}, {took:.3f} s {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    log("pipeline", "scan gate: " + "; ".join(scan_lines))
+                    raise RuntimeError(f"eager engine {name} across cards: loss {fl_err:.3g} or "
+                                       f"gradients {f_err:.3g} off one card's")
+                del far, fg, fs
         for unroll in sorted({1, n_micro}):
-            scan = CompiledPipelineRunner(fns, plan, [[dev] * n] * 2, unroll=unroll, **kw)
-            t0 = time.perf_counter()
-            sg, ss = scan.step(scan.place_params(sp), batch, record=True)
-            torch.cuda.synchronize(dev)
-            took = time.perf_counter() - t0
-            s_err = max(_rel(a, b) for x, y in zip(sg, grads, strict=True)
-                        for a, b in zip(leaves(x), leaves(y), strict=True) if b.numel())
-            sl_err = abs(ss.loss - stats.loss) / abs(stats.loss)
-            scan_worst = max(scan_worst, s_err, sl_err)
-            n_events = (3 if sched == "zb" else 2) * U
-            ok = (s_err <= PIPE_GATE_TOL and sl_err <= PIPE_GATE_TOL
-                  and ss.peak_stash == U * n_micro and len(ss.events) == n_events
-                  and all(e[2] == -1 for e in ss.events)
-                  and all(bool(torch.isfinite(x).all()) for g in sg for x in leaves(g)))
-            scan_lines.append(
-                f"{name}, unroll {unroll}: loss rel {sl_err:.3g}, gradients max rel "
-                f"{s_err:.3g}, peak_stash {ss.peak_stash} (U x n_micro {U * n_micro}), events "
-                f"{len(ss.events)} (want {n_events}), graphs {len(scan._graphs)}, {took:.3f} s "
-                f"with capture {'ok' if ok else 'FAILED'}")
-            if not ok:
-                log("pipeline", "scan gate: " + "; ".join(scan_lines))
-                raise RuntimeError(f"compiled engine {name}, unroll {unroll}: loss {sl_err:.3g}, "
-                                   f"gradients {s_err:.3g}, stash {ss.peak_stash} or events "
-                                   f"{len(ss.events)} off the eager engine's")
-            del sg, ss, scan
+            for where, sets in layouts:
+                scan = CompiledPipelineRunner(fns, plan, sets, unroll=unroll, **kw)
+                t0 = time.perf_counter()
+                sg, ss = scan.step(scan.place_params(sp), batch, record=True)
+                _sync_cards()
+                took = time.perf_counter() - t0
+                s_err = _grads_rel(sg, grads)
+                sl_err = abs(ss.loss - stats.loss) / abs(stats.loss)
+                scan_worst = max(scan_worst, s_err, sl_err)
+                n_events = (3 if sched == "zb" else 2) * U
+                loops, bad = _scan_loops(scan, sched, sync, n)
+                ok = (s_err <= PIPE_GATE_TOL and sl_err <= PIPE_GATE_TOL and not bad
+                      and ss.peak_stash == U * n_micro and len(ss.events) == n_events
+                      and all(e[2] == -1 for e in ss.events)
+                      and _on_first(sg, sets)
+                      and all(bool(torch.isfinite(x).all()) for g in sg for x in leaves(g)))
+                scan_lines.append(
+                    f"{name}, unroll {unroll}, {where}: loss rel {sl_err:.3g}, gradients max rel "
+                    f"{s_err:.3g}, peak_stash {ss.peak_stash} (U x n_micro {U * n_micro}), "
+                    f"events {len(ss.events)} (want {n_events}), graphs {len(scan._graphs)} "
+                    f"({loops}), {took:.3f} s with capture {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    log("pipeline", "scan gate: " + "; ".join(scan_lines))
+                    raise RuntimeError(f"compiled engine {name}, unroll {unroll}, {where}: loss "
+                                       f"{sl_err:.3g}, gradients {s_err:.3g}, stash "
+                                       f"{ss.peak_stash}, events {len(ss.events)} or graphs "
+                                       f"{bad} off the eager engine's")
+                del sg, ss, scan
         del grads, stats, runner, sp
     log("pipeline", f"gradient gate, {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} layers, "
                     f"{cfg.dtype}, batch {PIPE_GATE_BATCH} x {PIPE_GATE_SEQ}, against one "
                     f"device's loss {ref_loss:.6f} ({ref_s:.3f} s): " + "; ".join(lines)
                     + f"; worst {worst:.3g} (tol {PIPE_GATE_TOL:g}, max |a - b| / max |b| a "
                       f"leaf; loss relative); {smi}")
-    log("pipeline", "scan gradient gate, the compiled engine's loops as CUDA graphs against "
-                    "the eager engine, same shapes: " + "; ".join(scan_lines)
+    log("pipeline", "scan gradient gate, the compiled engine's loops as CUDA graphs, one a "
+                    "shard, against the eager engine on one card, same shapes (graphs, syncs "
+                    "or SFB gathers, and shard runs a loop of the last step): "
+                    + "; ".join(scan_lines)
                     + f"; worst {scan_worst:.3g} (tol {PIPE_GATE_TOL:g}); {smi}")
+    for why in sorted(not_across):
+        log("pipeline", why)
     torch.cuda.empty_cache()
 
 
@@ -1921,20 +2019,22 @@ def pipeline_gate_moe(dev, seed: int, smi: str):
         sl_err = abs(ss.loss - stats.loss) / abs(stats.loss)
         n_events = (3 if sched == "zb" else 2) * 2
         worst = max(worst, g_err, l_err, s_err, sl_err)
+        loops, bad = _scan_loops(scan, sched, "allreduce", n)
         ok = (max(g_err, l_err, s_err, sl_err) <= PIPE_GATE_TOL and ss.peak_stash == 2 * n_micro
-              and len(ss.events) == n_events and all(
+              and not bad and len(ss.events) == n_events and all(
                   bool(torch.isfinite(x).all()) for gg in (grads, sg) for g in gg
                   for x in leaves(g)))
         lines.append(f"{sched}, allreduce x{n} a stage: eager loss rel {l_err:.3g}, gradients "
                      f"max rel {g_err:.3g} (router {r_err:.3g}), peak_stash {stats.peak_stash}, "
                      f"{took:.3f} s; scan (unroll 1) against eager: loss rel {sl_err:.3g}, "
                      f"gradients {s_err:.3g}, peak_stash {ss.peak_stash}, events "
-                     f"{len(ss.events)}, graphs {len(scan._graphs)} {'ok' if ok else 'FAILED'}")
+                     f"{len(ss.events)}, graphs {len(scan._graphs)} ({loops}) "
+                     f"{'ok' if ok else 'FAILED'}")
         del grads, stats, runner, scan, sg, ss, sp
         if not ok:
             log("pipeline", "MoE gate: " + "; ".join(lines))
             raise RuntimeError(f"pipeline {sched} on {OLMOE}: beyond {PIPE_GATE_TOL:g} of one "
-                               f"device's row blocks or of the eager engine")
+                               f"device's row blocks or of the eager engine, or graphs {bad}")
     log("pipeline", f"MoE gradient gate, {cfg.name} d_model {cfg.d_model}, {cfg.num_layers} "
                     f"layers of {cfg.num_experts} experts top-{cfg.experts_per_token}, "
                     f"{cfg.dtype}, batch {PIPE_GATE_BATCH} x {PIPE_GATE_SEQ}, n_micro {n_micro}, "

@@ -10,8 +10,9 @@ split on dim 0 only where ``n`` divides it, and replicated otherwise
 stage's first device and are handed to the other shards at each step; the
 explicit AR / PS / SFB parameter-gradient syncs are functions over the shards
 (``parallel.sfb_dense``). The same code runs on a CPU device list in the
-tests and on ``[cuda:0] * k`` on one card, where every shard shares the card:
-that checks the schedule and the gradients, not overlap.
+tests, on ``[cuda:0] * k`` on one card, where every shard shares the card
+(that checks the schedule and the gradients, not overlap), and with a
+stage's shards on distinct cards.
 
 Two schedule extensions execute for real:
 
@@ -284,39 +285,67 @@ class PipelineRunner:
         dc = _unflat(carry, got[len(pl) if want_p else 0:]) if want_c else None
         return dp, dc
 
+    def _sfb(self, s: int) -> bool:
+        """Whether physical stage ``s`` syncs by SFB: gathers the sufficient
+        factors and recomputes the parameter gradient on shard 0."""
+        return self._ndev(s) > 1 and self.syncs[s] == "sfb"
+
+    def _workers(self, s: int, want_p: bool, want_c: bool) -> list:
+        """The shards of stage ``s`` with work in a backward event: all of
+        them where carry gradients or unsynced parameter gradients are asked
+        for, else shard 0 alone where SFB recomputes the parameter gradient,
+        else none."""
+        if want_c or (want_p and not self._sfb(s)):
+            return list(range(self._ndev(s)))
+        return [0] if want_p else []
+
+    def _sync(self, s: int, dps: list):
+        """Stage ``s``'s AR or PS sync of its shards' parameter gradients:
+        the synced tree on the stage's first device."""
+        return tree_grad_sync(dps, self.syncs[s], self._ndev(s), out=0)
+
+    def _sfb_factors(self, u: int, carry, mb, dout, rows: int, dim: int = 0) -> dict:
+        """SFB's sufficient factors of virtual stage ``u`` on its first
+        device: the shards' carry, microbatch and output gradient gathered
+        (rows on ``dim``: 1 for a stacked run of microbatches). The last
+        stage's seed is shard 0's ``1/ndev`` times ``ndev``: the gathered
+        loss is the global mean."""
+        s = self.phys(u)
+        return {"c": None if carry is None else self._gather(s, carry, rows, dim),
+                "mb": self._gather(s, mb, rows, dim),
+                "dout": (dout[0] * self._ndev(s) if u == self.U - 1
+                         else self._gather(s, dout, rows, dim))}
+
+    def _shard_vjp(self, u: int, i: int, p, carry, mb, dout, factors, want_p: bool,
+                   want_c: bool):
+        """Shard ``i``'s part of one backward event of virtual stage ``u``:
+        (its parameter gradient, unsynced, or on shard 0 under SFB the one
+        recomputed on ``factors``; its carry gradient), each None where not
+        asked for."""
+        sfb = self._sfb(self.phys(u))
+        dp = dc = None
+        if want_c or (want_p and not sfb):
+            dp, dc = self._vjp(u, p, carry, mb, dout, want_p and not sfb, want_c)
+        if want_p and sfb and i == 0:
+            dp, _ = self._vjp(u, p, factors["c"], factors["mb"], factors["dout"], True, False)
+        return dp, dc
+
     def _grads(self, u: int, reps, carry, mb, dout, rows: int, want_p: bool,
                want_c: bool):
         """One backward event of virtual stage ``u`` over its shards:
         (synced parameter gradient on the stage's first device or None,
         per-shard carry gradients or None)."""
         s = self.phys(u)
-        n = self._ndev(s)
-        sync = self.syncs[s]
-        sfb = n > 1 and sync == "sfb"
-        local_p = want_p and not sfb
-        dps, dcs = [], []
-        if local_p or want_c:
-            for i in range(n):
-                dp, dc = self._vjp(u, reps[i], carry[i] if carry is not None else None,
-                                   mb[i], dout[i], local_p, want_c)
-                dps.append(dp)
-                dcs.append(dc)
+        want_c = want_c and carry is not None
+        factors = (self._sfb_factors(u, carry, mb, dout, rows)
+                   if want_p and self._sfb(s) else None)
+        got = [self._shard_vjp(u, i, reps[i], None if carry is None else carry[i], mb[i],
+                               dout[i], factors, want_p, want_c)
+               for i in self._workers(s, want_p, want_c)]
         dp = None
-        if local_p:
-            dp = tree_grad_sync(dps, sync, n, out=0)
-        elif want_p:
-            # SFB: the sufficient factors (the stage's input, microbatch and
-            # output gradient) on the wire, the parameter gradient recomputed
-            # on the full microbatch
-            c_g = None if carry is None else self._gather(s, carry, rows)
-            mb_g = self._gather(s, mb, rows)
-            if u == self.U - 1:
-                seed = dout[0] * n            # 1/ndev -> 1: the gathered loss
-                #                               is the global mean
-            else:
-                seed = self._gather(s, dout, rows)
-            dp, _ = self._vjp(u, reps[0], c_g, mb_g, seed, True, False)
-        return dp, (dcs if want_c and carry is not None else None)
+        if want_p:
+            dp = got[0][0] if factors is not None else self._sync(s, [g[0] for g in got])
+        return dp, ([g[1] for g in got] if want_c else None)
 
     # ------------------------------------------------------------- step
     def step(self, params_list, batch, *, record: bool = False) -> tuple:
@@ -498,12 +527,15 @@ class PipelineRunner:
 
 
 class _Graph:
-    """One captured loop of the compiled engine: a CUDA graph of ``body`` on
-    static copies of its inputs. ``fixed`` inputs (parameters, the loss
-    seed) are read where they lie; ``fresh`` ones (microbatches, boundary
-    values) are copied into static buffers before every replay. Outputs are
-    the graph's own buffers: the caller copies them out before the next
-    replay. The body is passed at each call, never kept, so that no
+    """One shard's captured loop in the compiled engine: a CUDA graph of
+    ``body`` on static copies of its inputs, on one device. ``fixed`` inputs
+    (parameters, the loss seed) are read where they lie; ``fresh`` ones
+    (microbatches, boundary values, SFB's factors) are copied into static
+    buffers before every replay. Capture and replay run under the device on
+    its current stream, so the work around them (the stage's sync, its
+    cross-device copies) is ordered after the replay by that stream. Outputs
+    are the graph's own buffers: the caller reads them before that graph's
+    next replay. The body is passed at each call, never kept, so that no
     reference cycle holds the runner."""
 
     def __init__(self, device: torch.device, pool):
@@ -511,37 +543,39 @@ class _Graph:
         self.graph = self.static_in = self.out = None
 
     def run(self, body, fixed, fresh):
-        if self.graph is None:
-            self._capture(body, fixed, fresh)
-        for st, x in zip(self.static_in, _flat(fixed) + _flat(fresh), strict=True):
-            if (st.data_ptr(), st.shape, st.stride()) != (x.data_ptr(), x.shape, x.stride()):
-                st.copy_(x)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._capture(body, fixed, fresh)
+            for st, x in zip(self.static_in, _flat(fixed) + _flat(fresh), strict=True):
+                if (st.data_ptr(), st.shape, st.stride()) != (x.data_ptr(), x.shape, x.stride()):
+                    st.copy_(x)
+            self.graph.replay()
         return self.out
 
     def _capture(self, body, fixed, fresh):
         statics = [x.clone() for x in _flat(fresh)]
         fresh_s = _unflat(fresh, statics)
-        with torch.cuda.device(self.device):
-            # warm-up on a side stream (cuBLAS handles and workspaces, the
-            # autograd engine's device thread), as PyTorch's whole-network
-            # capture recipe does; then capture into the runner's pool
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                body(fixed, fresh_s)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = body(fixed, fresh_s)
+        # warm-up on a side stream of this device (cuBLAS handles and
+        # workspaces, the autograd engine's device thread), as PyTorch's
+        # whole-network capture recipe does; then capture on that stream into
+        # the device's pool (``torch.cuda.graph``'s own capture stream is one
+        # for the process, made on whichever device was current first)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            body(fixed, fresh_s)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=side):
+            out = body(fixed, fresh_s)
+        torch.cuda.current_stream(self.device).wait_stream(side)
         self.graph, self.static_in, self.out = graph, _flat(fixed) + statics, out
 
 
 class CompiledPipelineRunner(PipelineRunner):
     """The compiled engine, the port of ``repro.exec.engine.
-    CompiledPipelineRunner``: the eager engine's stage math (``_grads``),
-    run as O(U) rolled loops a step instead of O(U * n_micro) dispatched
-    events.
+    CompiledPipelineRunner``: the eager engine's stage math (``_vjp``,
+    ``_shard_vjp``, the sync, SFB's factors), run as O(U) rolled loops a
+    step instead of O(U * n_micro) dispatched events.
 
     A virtual stage ``u`` has one forward loop over the stacked
     ``[n_micro, rows, ...]`` microbatch axis and one backward loop that
@@ -558,41 +592,45 @@ class CompiledPipelineRunner(PipelineRunner):
     ``StepStats.events`` holds one entry a loop with ``mb == -1``: ``2U``,
     or ``3U`` under zero-bubble.
 
-    On a CUDA device each loop is captured once, at the first step, into a
-    ``torch.cuda.CUDAGraph`` (all of a step's graphs share one memory pool,
-    captured in the order they replay) and replayed at every step after.
-    ``unroll`` microbatch bodies make one graph, replayed ``n_micro //
-    unroll`` times, with a graph for the remainder where ``unroll`` does not
-    divide ``n_micro``: at 1, capture time and graph memory stay flat in
-    ``n_micro``; at ``n_micro``, one replay a loop. On the CPU, where no
-    graph exists, the same rolled loops run uncaptured. A capture or replay
-    that fails raises: nothing falls back to the uncaptured loop or to the
-    eager engine on a card.
+    A loop runs ``unroll`` microbatch bodies a replay, ``n_micro // unroll``
+    replays and one for the remainder where ``unroll`` does not divide
+    ``n_micro``. Each shard of a stage has its own body a replay, on its own
+    device: the forward on its rows; the backward giving its carry gradients
+    and its parameter gradient summed over the replay's microbatches,
+    unsynced. Between replays, outside the bodies, the stage's sync runs once
+    on the shards' sums (AR, PS; added into the gradient on the stage's first
+    device), or, under SFB, the replay's carry, microbatch and output
+    gradient are gathered onto shard 0 first, whose body recomputes each
+    microbatch's parameter gradient on them. At ``unroll`` 1 that is one sync
+    or gather a microbatch, ``repro``'s program; at ``k``, one a replay.
+    ``loop_counts[(u, kind)]`` holds the last step's shard runs and syncs (or
+    gathers) of each loop.
+
+    On a CUDA device each shard's loop is captured once, at the first step,
+    into a ``torch.cuda.CUDAGraph`` on that shard's device (a device's graphs
+    share one memory pool, captured in the order they replay) and replayed
+    at every step after; a shard on the CPU runs its body uncaptured. So the
+    shards of a stage may share one card, sit on distinct cards, or mix the
+    CPU and cards. At 1, capture time and graph memory stay flat in
+    ``n_micro``; at ``n_micro``, one replay a loop. A capture or replay that
+    fails raises: nothing falls back to the uncaptured loop or to the eager
+    engine on a card.
 
     The parameters are read where they lie: pass the same tensors each step
     and update them in place, as ``launch.steps.make_pipeline_train_step``'s
-    AdamW does (a new tensor is copied into the captured one). A stage whose
-    shards sit on distinct devices with a CUDA device among them is not
-    supported (ROADMAP queue 1, item 3): the shards of a stage on one card
-    run in one graph, every sync a same-device sum.
+    AdamW does (a new tensor, such as a shard's copy on another device, is
+    copied into the captured one).
     """
 
     def __init__(self, *args, unroll: int = 1, **kw):
         super().__init__(*args, **kw)
-        for s, devs in enumerate(self.device_sets):
-            if len(set(devs)) > 1 and any(d.type == "cuda" for d in devs):
-                raise NotImplementedError(
-                    f"compiled engine: stage {s} spans distinct devices "
-                    f"{[str(d) for d in devs]}; a stage's shards must share one card "
-                    f"(ROADMAP queue 1, item 3)")
         self.unroll = max(1, int(unroll))
-        last = self.device_sets[self.phys(self.U - 1)]
-        # the last stage's backward seed, made once: a graph cannot copy
-        # from the host
-        self._seed = [torch.full((), 1.0 / len(last), dtype=torch.float32, device=d)
-                      for d in last]
-        self._graphs: dict = {}          # (u, kind, k) -> _Graph
-        self._pool = None
+        # the last stage's backward seed a shard, made at the first step (a
+        # graph cannot copy from the host); the constructor touches no device
+        self._seed = None
+        self._graphs: dict = {}          # (u, kind, k, shard) -> _Graph
+        self._pools: dict = {}           # device -> its graphs' memory pool
+        self.loop_counts: dict = {}      # (u, kind) -> {"runs": n, "syncs": n}
 
     def _chunks(self) -> list:
         """(first microbatch, count) of each replay, in forward order."""
@@ -600,41 +638,47 @@ class CompiledPipelineRunner(PipelineRunner):
         q, r = divmod(self.n_micro, k)
         return [(i * k, k) for i in range(q)] + ([(q * k, r)] if r else [])
 
-    def _run(self, u: int, kind: str, k: int, body, fixed, fresh):
-        dev = self.device_sets[self.phys(u)][0]
+    def _count(self, u: int, kind: str, what: str):
+        c = self.loop_counts.setdefault((u, kind), {"runs": 0, "syncs": 0})
+        c[what] += 1
+
+    def _run(self, u: int, kind: str, k: int, i: int, body, fixed, fresh):
+        """One replay of shard ``i``'s loop: its graph on a card, its body
+        uncaptured elsewhere."""
+        self._count(u, kind, "runs")
+        dev = self.device_sets[self.phys(u)][i]
         if dev.type != "cuda":
             return body(fixed, fresh)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        g = self._graphs.get((u, kind, k))
+        g = self._graphs.get((u, kind, k, i))
         if g is None:
-            g = self._graphs[(u, kind, k)] = _Graph(dev, self._pool)
+            if dev not in self._pools:
+                self._pools[dev] = torch.cuda.graph_pool_handle()
+            g = self._graphs[(u, kind, k, i)] = _Graph(dev, self._pools[dev])
         return g.run(body, fixed, fresh)
 
     # ------------------------------------------------------------ loops
     def _fwd_loop(self, u: int, reps, cs, mbs):
         """Virtual stage ``u``'s forward over every microbatch: per shard,
         the stacked outputs (``(loss [M], metrics [M])`` on the last)."""
-        fn, n = self.fns[u], len(reps)
+        fn = self.fns[u]
 
         def body(k):
-            def run(fixed, fresh):
+            def run(p, fresh):
                 with torch.no_grad():
-                    return [_stack([fn(fixed[i],
-                                       None if fresh["c"] is None else _at(fresh["c"][i], j),
-                                       _at(fresh["mb"][i], j)) for j in range(k)])
-                            for i in range(n)]
+                    return _stack([fn(p, None if fresh["c"] is None else _at(fresh["c"], j),
+                                      _at(fresh["mb"], j)) for j in range(k)])
             return run
 
-        full = None
+        full = [None] * len(reps)
         for m0, k in self._chunks():
-            fresh = {"c": None if cs is None else [_map(lambda t: t[m0:m0 + k], c) for c in cs],
-                     "mb": [_map(lambda t: t[m0:m0 + k], mb) for mb in mbs]}
-            out = self._run(u, "F", k, body(k), reps, fresh)
-            if full is None:
-                full = [_map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])), o) for o in out]
-            for dst, src in zip(_flat(full), _flat(out), strict=True):
-                dst[m0:m0 + k].copy_(src)
+            for i, p in enumerate(reps):
+                fresh = {"c": None if cs is None else _map(lambda t: t[m0:m0 + k], cs[i]),
+                         "mb": _map(lambda t: t[m0:m0 + k], mbs[i])}
+                out = self._run(u, "F", k, i, body(k), p, fresh)
+                if full[i] is None:
+                    full[i] = _map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])), out)
+                for dst, src in zip(_flat(full[i]), _flat(out), strict=True):
+                    dst[m0:m0 + k].copy_(src)
         return full
 
     def _bwd_loop(self, u: int, kind: str, reps, cs, mbs, douts, rows: int,
@@ -643,49 +687,70 @@ class CompiledPipelineRunner(PipelineRunner):
         (the parameter gradient summed over microbatches, on the stage's
         first device, or None; per shard the stacked carry gradients, or
         None)."""
+        s, last = self.phys(u), u == self.U - 1
         want_c = want_c and cs is not None
-        if not (want_p or want_c):
+        workers = self._workers(s, want_p, want_c)
+        if not workers:
             return None, None           # zb's B of stage 0: nothing to compute
-        n, last = len(reps), u == self.U - 1
+        sfb = want_p and self._sfb(s)
+        own = want_c or (want_p and not sfb)     # shards need their own rows
 
-        def body(k):
+        def body(i, k):
             def run(fixed, fresh):
-                dp_sum, dcs = None, [[] for _ in range(n)]
+                dp_sum, dcs = None, []
                 for j in reversed(range(k)):
-                    c = None if fresh["c"] is None else [_at(x, j) for x in fresh["c"]]
-                    dout = fixed["seed"] if last else [_at(x, j) for x in fresh["dout"]]
-                    dp, dc = self._grads(u, fixed["p"], c, [_at(x, j) for x in fresh["mb"]],
-                                         dout, rows, want_p, want_c)
+                    mine = {key: _at(v, j) for key, v in fresh["own"].items()}
+                    f = fresh["sfb"]
+                    factors = None if f is None else {
+                        "c": _at(f["c"], j), "mb": _at(f["mb"], j),
+                        "dout": f["dout"] if last else _at(f["dout"], j)}
+                    dp, dc = self._shard_vjp(
+                        u, i, fixed["p"], mine.get("c"), mine.get("mb"),
+                        fixed["seed"] if last else mine.get("dout"), factors, want_p, want_c)
                     if dp is not None:
                         dp_sum = dp if dp_sum is None else _unflat(
                             dp, [a + b for a, b in zip(_flat(dp_sum), _flat(dp), strict=True)])
-                    for i in range(n if dc is not None else 0):
-                        dcs[i].append(dc[i])
-                return {"dp": dp_sum,
-                        "dc": [_stack(d[::-1]) for d in dcs] if want_c else None}
+                    if dc is not None:
+                        dcs.append(dc)
+                return {"dp": dp_sum, "dc": _stack(dcs[::-1]) if dcs else None}
             return run
 
-        fixed = {"p": reps, "seed": self._seed if last else None}
-        acc = dc_full = None
+        def cut(ts, m0, k):
+            """Each shard's microbatches ``m0 .. m0 + k`` of stacked ``ts``."""
+            return None if ts is None else [_map(lambda x: x[m0:m0 + k], t) for t in ts]
+
+        acc, dc_full = None, [None] * len(reps)
         for m0, k in reversed(self._chunks()):
-            fresh = {"c": None if cs is None else [_map(lambda t: t[m0:m0 + k], c) for c in cs],
-                     "mb": [_map(lambda t: t[m0:m0 + k], mb) for mb in mbs],
-                     "dout": None if last else [_map(lambda t: t[m0:m0 + k], d) for d in douts]}
-            out = self._run(u, kind, k, body(k), fixed, fresh)
+            c, mb, dout = cut(cs, m0, k), cut(mbs, m0, k), None if last else cut(douts, m0, k)
+            factors = None
+            if sfb:
+                factors = self._sfb_factors(u, c, mb, self._seed if last else dout, rows, dim=1)
+                self._count(u, kind, "syncs")
+            outs = []
+            for i in workers:
+                mine = {"c": c and c[i], "mb": mb[i], "dout": dout and dout[i]} if own else {}
+                outs.append(self._run(u, kind, k, i, body(i, k),
+                                      {"p": reps[i], "seed": self._seed[i] if last else None},
+                                      {"own": mine, "sfb": factors if i == 0 else None}))
             if want_p:
-                dp = _flat(out["dp"])
+                if sfb:
+                    dp = outs[0]["dp"]
+                else:
+                    dp = self._sync(s, [o["dp"] for o in outs])
+                    self._count(u, kind, "syncs")
+                dp = _flat(dp)
                 if acc is None:
                     acc = [t.clone() for t in dp]
                 else:
                     torch._foreach_add_(acc, dp)
-            if want_c:
-                if dc_full is None:
-                    dc_full = [_map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])), d)
-                               for d in out["dc"]]
-                for dst, src in zip(_flat(dc_full), _flat(out["dc"]), strict=True):
+            for i, o in zip(workers, outs) if want_c else ():
+                if dc_full[i] is None:
+                    dc_full[i] = _map(lambda t: t.new_empty((self.n_micro, *t.shape[1:])),
+                                      o["dc"])
+                for dst, src in zip(_flat(dc_full[i]), _flat(o["dc"]), strict=True):
                     dst[m0:m0 + k].copy_(src)
-            del out
-        return (_unflat(reps[0], acc) if want_p else None), dc_full
+            del outs
+        return (_unflat(reps[0], acc) if want_p else None), (dc_full if want_c else None)
 
     # ------------------------------------------------------------- step
     def step(self, params_list, batch, *, record: bool = False) -> tuple:
@@ -696,6 +761,11 @@ class CompiledPipelineRunner(PipelineRunner):
         S, U, M = self.S, self.U, self.n_micro
         stacked = stack_microbatches(batch, M)
         rows = next(iter(stacked.values())).shape[1]
+        if self._seed is None:
+            last = self.device_sets[self.phys(U - 1)]
+            self._seed = [torch.full((), 1.0 / len(last), dtype=torch.float32, device=d)
+                          for d in last]
+        self.loop_counts = {}
 
         params_eff = list(params_list)
         if self.tied_ref is not None:

@@ -193,14 +193,16 @@ def build_pipeline(args, cfg, stage_plan, devices=None) -> PipelineSession:
               tied_ref=tied, store=store, spool=_make_spool(args),
               meta={"arch": args.arch, "batch": args.batch, "seq": args.seq,
                     "launcher": "train", "engine": engine, "run_id": _run_id(args)})
+    stages = "; ".join(f"stage {s} on {', '.join(str(d) for d in devs)}"
+                       for s, devs in enumerate(device_sets))
     if engine == "scan":
         unroll = max(1, getattr(args, "scan_unroll", 1))
         runner = CompiledPipelineRunner(fns, stage_plan, device_sets, unroll=unroll, **kw)
         how = "CUDA graphs" if dev0.type == "cuda" else f"uncaptured on {dev0.type}"
-        print(f"pipeline engine: scan ({how}, unroll={unroll})", flush=True)
+        print(f"pipeline engine: scan ({how}, unroll={unroll}); {stages}", flush=True)
     else:
         runner = PipelineRunner(fns, stage_plan, device_sets, **kw)
-        print("pipeline engine: eager (one dispatch an event)", flush=True)
+        print(f"pipeline engine: eager (one dispatch an event); {stages}", flush=True)
 
     opt = AdamW(lr=args.lr)
     params_list = runner.place_params(stage_params)

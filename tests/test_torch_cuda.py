@@ -469,13 +469,39 @@ def _scan_setup(arch, sync, n, n_micro, V, devices):
     return cfg, plan, out
 
 
+def _graph_shards(scan) -> dict:
+    """The shards with a captured graph, by loop ``(u, kind)``."""
+    out = {}
+    for u, kind, _, i in scan._graphs:
+        out.setdefault((u, kind), set()).add(i)
+    return out
+
+
+def _want_graph_shards(scan, sched, sync, n) -> dict:
+    """One graph a shard in a loop where every shard has work (the forward;
+    a backward giving carry gradients or unsynced parameter gradients),
+    shard 0's alone where only SFB's recompute has work, none in zb's B of
+    the first stage."""
+    sfb, out = sync == "sfb" and n > 1, {}
+    for u in range(scan.U):
+        out[(u, "F")] = set(range(n))
+        if sched == "zb":
+            if u > 0:
+                out[(u, "B")] = set(range(n))
+            out[(u, "W")] = {0} if sfb else set(range(n))
+        else:
+            out[(u, "B")] = {0} if sfb and u == 0 else set(range(n))
+    return out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m", "olmoe-1b-7b", "jamba-v0.1-52b"])
 @pytest.mark.parametrize("case", [c[0] for c in SCAN_CASES])
 def test_scan_engine_captured_matches_uncaptured(case, arch):
     """The compiled engine on the card, each loop a CUDA graph captured at
-    the first step and replayed after, against the same engine uncaptured on
-    the CPU and the eager engine on the card: 3 steps, each on a new batch,
+    the first step and replayed after (one graph a shard with work), against
+    the same engine uncaptured on the CPU and the eager engine on the card:
+    3 steps, each on a new batch,
     AdamW updating the card's parameters in place between them (so the
     replays read new inputs and new parameters). Loss 1e-4 relative and
     every gradient leaf 1e-4 x max(1, max |g|), TF32 off."""
@@ -505,6 +531,7 @@ def test_scan_engine_captured_matches_uncaptured(case, arch):
                  for k in ("tokens", "labels")}
         g_scan, s_scan = scan.step(params, {k: v.to(dev) for k, v in batch.items()})
         assert s_scan.peak_stash == 2 * V * n_micro
+        assert _graph_shards(scan) == _want_graph_shards(scan, sched, sync, n), case
         others = [runners["eager"][0].step(params, {k: v.to(dev) for k, v in batch.items()})]
         if step == 0:
             others.append(runners["cpu"][0].step(runners["cpu"][1], batch))
@@ -519,6 +546,123 @@ def test_scan_engine_captured_matches_uncaptured(case, arch):
         for p, s, g in zip(params, state, g_scan, strict=True):
             opt.update(p, s, g, step)           # in place: the graphs read p
     torch.cuda.synchronize()
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices for a stage's shards on distinct cards; "
+                    f"torch.cuda.device_count() is {torch.cuda.device_count()}")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _close_on_card(a_list, b_list, what):
+    """Every gradient leaf of ``a_list`` on its stage's first device (``cuda:0``
+    here), finite, within 1e-4 x max(1, max |b|) of ``b_list``'s."""
+    from repro_torch.optim.adam import leaves
+    for a, b in zip((x for g in a_list for x in leaves(g)),
+                    (x for g in b_list for x in leaves(g)), strict=True):
+        assert a.device == b.device and bool(torch.isfinite(a).all()), what
+        if b.numel():
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4 * max(1.0, b.abs().max().item()), (what, err)
+
+
+def _scan_against_one_card(case, arch, sets):
+    """The compiled engine on the 2-shard ``case`` with the device sets
+    ``sets`` against the same case on ``[[cuda:0] * 2] * 2``: 3 steps, each on
+    a new batch, AdamW updating the parameters (on each stage's first
+    device, ``cuda:0`` in both) in place between them. Loss 1e-4 relative,
+    every gradient leaf 1e-4 x max(1, max |g|), TF32 off. Returns the
+    runner on ``sets`` and the case's schedule and sync."""
+    from repro_torch.exec import CompiledPipelineRunner
+    from repro_torch.optim.adam import AdamW
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c0 = torch.device("cuda", 0)
+    _, sched, sync, n, n_micro, V, unroll = next(c for c in SCAN_CASES if c[0] == case)
+    cfg, plan, split = _scan_setup(arch, sync, n, n_micro, V, (c0,))
+    sp, fns, keys, tied = split[c0]
+    kw = dict(schedule=sched, n_micro=n_micro, n_chunks=V, mb_keys=keys, tied_ref=tied,
+              unroll=unroll)
+    far = CompiledPipelineRunner(fns, plan, sets, **kw)
+    one = CompiledPipelineRunner(fns, plan, [[c0] * n] * 2, **kw)
+    params = far.place_params(sp)
+    opt = AdamW(lr=1e-3)
+    state = [opt.init(p) for p in params]
+    rng = np.random.default_rng(1)
+    seq = SCAN_SEQ.get(arch, 16)
+    for step in range(3):
+        batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, seq)), device=c0)
+                 for k in ("tokens", "labels")}
+        g_far, s_far = far.step(params, batch)
+        g_one, s_one = one.step(params, batch)
+        assert s_far.peak_stash == s_one.peak_stash == 2 * V * n_micro
+        assert abs(s_far.loss - s_one.loss) <= 1e-4 * abs(s_one.loss), (step, case)
+        _close_on_card(g_far, g_one, (step, case))
+        for p, st, g in zip(params, state, g_far, strict=True):
+            opt.update(p, st, g, step)
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    return far, sched, sync
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m", "olmoe-1b-7b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("case", [c[0] for c in SCAN_CASES if c[3] > 1])
+def test_scan_engine_across_cards_matches_one_card(case, arch):
+    """``_scan_against_one_card`` with a stage's shards on distinct cards,
+    ``[[cuda:0, cuda:1]] * 2``: one graph a shard with work on its own card,
+    each card's graphs in its own pool, the stage's sync between replays.
+    Skips below 2 cards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c0, c1 = _two_cards()
+    far, sched, sync = _scan_against_one_card(case, arch, [[c0, c1]] * 2)
+    assert _graph_shards(far) == _want_graph_shards(far, sched, sync, 2)
+    assert set(far._pools) == {c0, c1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [c[0] for c in SCAN_CASES if c[3] > 1])
+def test_scan_engine_mixes_cpu_and_card_shards(case):
+    """``_scan_against_one_card`` on reduced qwen2-1.5b with each stage's
+    second shard on the CPU, ``[[cuda:0, cpu]] * 2``: the card's shard runs
+    captured, the CPU's uncaptured, the sync between them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c0 = torch.device("cuda", 0)
+    far, sched, sync = _scan_against_one_card(case, "qwen2-1.5b", [[c0, torch.device("cpu")]] * 2)
+    want = {k: v & {0} for k, v in _want_graph_shards(far, sched, sync, 2).items()}
+    assert _graph_shards(far) == want and set(far._pools) == {c0}
+    assert all(c["runs"] for c in far.loop_counts.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync", ["allreduce", "ps", "sfb"])
+def test_pipeline_engine_across_cards_matches_one_card(sync):
+    """The eager engine with a stage's shards on distinct cards
+    (``[[cuda:0, cuda:1]] * 2``, 1f1b, 2 microbatches) against the same plan
+    on ``[[cuda:0] * 2] * 2``: loss 1e-4 relative and every gradient leaf 1e-4
+    x max(1, max |g|) on reduced qwen2-1.5b in f32, TF32 off. Skips below 2
+    cards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c0, c1 = _two_cards()
+    from repro_torch.exec import PipelineRunner
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, plan, split = _scan_setup("qwen2-1.5b", sync, 2, 2, 1, (c0,))
+    sp, fns, keys, tied = split[c0]
+    rng = np.random.default_rng(1)
+    batch = {k: torch.as_tensor(rng.integers(0, cfg.vocab_size, (8, 16)), device=c0)
+             for k in ("tokens", "labels")}
+    got = []
+    for sets in ([[c0, c1]] * 2, [[c0] * 2] * 2):
+        r = PipelineRunner(fns, plan, sets, schedule="1f1b", mb_keys=keys, tied_ref=tied)
+        got.append(r.step(r.place_params(sp), batch, record=True))
+    (g_far, s_far), (g_one, s_one) = got
+    assert abs(s_far.loss - s_one.loss) <= 1e-4 * abs(s_one.loss)
+    assert s_far.peak_stash == s_one.peak_stash
+    assert [e[:3] for e in s_far.events] == [e[:3] for e in s_one.events]
+    _close_on_card(g_far, g_one, sync)
 
 
 def _gnn_case():

@@ -181,6 +181,53 @@ def test_scan_unroll_keeps_the_gradients(unroll):
     _grads_close(gk, g1, 1e-6, f"unroll {unroll}")
 
 
+@pytest.mark.parametrize("unroll", [1, 2])
+@pytest.mark.parametrize("sync", ["allreduce", "ps", "sfb"])
+@pytest.mark.parametrize("sched", ["1f1b", "zb"])
+def test_scan_engine_syncs_once_a_replay(monkeypatch, sched, sync, unroll):
+    """Two shards a stage on ``[[CPU] * 2] * 2``, 4 microbatches: each loop
+    runs one body a shard with work a replay (SFB's parameter gradient only
+    on shard 0; zb's B of stage 0 has none) and one sync, or SFB gather, a
+    replay where it gives a parameter gradient; the gradients are the eager
+    engine's, 1e-4."""
+    import repro_torch.exec.engine as engine_mod
+    cfg = get_reduced("qwen2-1.5b").replace(dtype="float32")
+    from repro_torch.models.model import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    batch = _torch_batch(_batch(cfg.vocab_size, 16))
+    M, n = 4, 2
+    plan = StagePlan.from_dict(_plan(M, sync, n))
+    sp, fns, keys, tied = split_model(cfg, params, 2)
+    kw = dict(schedule=sched, n_micro=M, mb_keys=keys, tied_ref=tied)
+    scan = CompiledPipelineRunner(fns, plan, [[CPU] * n] * 2, unroll=unroll, **kw)
+    calls = []
+    real = engine_mod.tree_grad_sync
+    monkeypatch.setattr(engine_mod, "tree_grad_sync",
+                        lambda *a, **k: calls.append(a[1]) or real(*a, **k))
+    grads, stats = scan.step(scan.place_params(sp), batch, record=True)
+    monkeypatch.undo()
+    replays = -(-M // unroll)
+    sfb = sync == "sfb"
+    want = {}
+    for u in range(2):
+        want[(u, "F")] = {"runs": n * replays, "syncs": 0}
+        if sched == "zb":
+            if u > 0:
+                want[(u, "B")] = {"runs": n * replays, "syncs": 0}
+            want[(u, "W")] = {"runs": (1 if sfb else n) * replays, "syncs": replays}
+        else:
+            want[(u, "B")] = {"runs": (1 if sfb and u == 0 else n) * replays,
+                              "syncs": replays}
+    assert scan.loop_counts == want
+    n_syncs = sum(c["syncs"] for c in want.values())
+    assert calls == ([] if sfb else [sync] * n_syncs)
+    eager = PipelineRunner(fns, plan, [[CPU] * n] * 2, **kw)
+    e_grads, e_stats = eager.step(eager.place_params(sp), batch)
+    assert abs(stats.loss - e_stats.loss) < TOL
+    assert len(stats.events) == (3 if sched == "zb" else 2) * 2
+    _grads_close(grads, e_grads, TOL, f"{sched} {sync} unroll {unroll}")
+
+
 def test_run_pipeline_scan_trains_checkpoints_and_resumes(tmp_path, capsys):
     """``run_pipeline`` with ``engine="scan"`` and 2-way stage data
     parallelism on a CPU device list: the loss falls, a run killed after 2
@@ -197,7 +244,8 @@ def test_run_pipeline_scan_trains_checkpoints_and_resumes(tmp_path, capsys):
     resumed = run_pipeline(_args(ckpt_dir=d2, resume=True, **scan), cfg, plan, devs)
     eager = run_pipeline(_args(engine="eager"), cfg, plan, devs)
     out = capsys.readouterr().out
-    assert "pipeline engine: scan (uncaptured on cpu, unroll=2)" in out
+    assert ("pipeline engine: scan (uncaptured on cpu, unroll=2); stage 0 on cpu, cpu; "
+            "stage 1 on cpu, cpu") in out
     assert "resumed pipelined run from step 2" in out and "[pipeline 1f1b x2]" in out
     assert len(full) == 4 and all(np.isfinite(full)) and full[-1] < full[0]
     np.testing.assert_allclose(full[2:], resumed, rtol=0, atol=1e-6)

@@ -461,20 +461,30 @@ def test_pipelined_plan_falls_back_without_the_devices(capsys):
 
 
 def test_engine_scan_still_raises():
-    """The compiled engine refuses a stage whose shards sit on distinct CUDA
-    devices (checked before any device is touched); a stage's shards on one
-    card, or on the CPU, run."""
+    """The compiled engine takes a stage whose shards sit on distinct CUDA
+    devices, or mix the CPU and a card, without touching a device at
+    construction; where those cards are missing its step still raises, and
+    nothing falls back to the CPU. A stage's shards on the CPU run."""
     from repro_torch.exec import CompiledPipelineRunner, split_model
     from repro_torch.models.model import init_params
     cfg = ttrain.get_reduced("qwen2-1.5b").replace(dtype="float32")
-    _, fns, keys, tied = split_model(
+    sp, fns, keys, tied = split_model(
         cfg, init_params(cfg, torch.Generator().manual_seed(0), CPU), 2)
     plan = _pipe_plan().stage_plan
     cuda = [torch.device("cuda", i) for i in range(4)]
+    batch = {k: torch.zeros((8, 16), dtype=torch.long) for k in ("tokens", "labels")}
     for sets in ([cuda[:2], cuda[2:]], [[CPU, cuda[0]], [CPU, CPU]]):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3"):
-            CompiledPipelineRunner(fns, plan, sets, mb_keys=keys, tied_ref=tied)
-    CompiledPipelineRunner(fns, plan, [[CPU, CPU], [CPU, CPU]], mb_keys=keys, tied_ref=tied)
+        runner = CompiledPipelineRunner(fns, plan, sets, mb_keys=keys, tied_ref=tied)
+        assert runner._seed is None and not runner._graphs and not runner._pools
+        assert runner.device_sets == sets
+        if max(d.index for s in sets for d in s if d.type == "cuda") >= torch.cuda.device_count():
+            with pytest.raises((RuntimeError, AssertionError)):
+                runner.step(runner.place_params(sp), batch)
+            assert not runner._graphs
+    runner = CompiledPipelineRunner(fns, plan, [[CPU, CPU], [CPU, CPU]], mb_keys=keys,
+                                    tied_ref=tied)
+    grads, stats = runner.step(runner.place_params(sp), batch)
+    assert len(grads) == 2 and stats.peak_stash == 2 * plan.n_micro
 
 
 def test_instrumented_step_times_each_call():
